@@ -1,0 +1,415 @@
+"""Command-line entry points: infer / eval / ensemble / serve.
+
+    python -m cone_tpu_torch <infer|eval|ensemble|serve> ... [--device cuda]
+
+Counterparts of the reference's cone/inference.py CLI and its standalone
+evaluators, driven by the workdir's typed ConeConfig (config.json); any
+field can be overridden with --set section.field=value. Commands that run
+the model take --device (default cuda: without a card they raise; pass
+--device cpu to run on the CPU).
+
+Inputs: packed .cfs feature stores (cone_tpu_torch/data/store.py; the text
+feature directory holds tokens.cfs and cls.cfs) and a workdir with
+config.json and model_<tag>.ckpt, a reference-named torch checkpoint
+(train/checkpoint.py).
+
+Not ported yet: train, demo, reformat, extract-*, convert-store.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+
+def _apply_overrides(cfg, sets):
+    for kv in sets or []:
+        key, val = kv.split("=", 1)
+        section, field = key.split(".", 1)
+        sec = getattr(cfg, section)
+        cur = getattr(sec, field)
+        if isinstance(cur, bool):
+            val = val.lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            val = int(val)
+        elif isinstance(cur, float):
+            val = float(val)
+        cfg = cfg.replace(**{section: dataclasses.replace(sec, **{field: val})})
+    return cfg
+
+
+def _open_store(path):
+    from cone_tpu_torch.data.store import PackedArrayStore
+
+    if not str(path).endswith(".cfs"):
+        raise NotImplementedError(
+            f"{path}: the port reads packed .cfs stores only; the LMDB reader and "
+            "convert-store are ROADMAP Queue 1 item 14")
+    return PackedArrayStore(path)
+
+
+def _open_dataset(cfg, data_path):
+    from cone_tpu_torch.data.dataset import GroundingDataset
+    from cone_tpu_torch.data.store import TextFeatureStore
+
+    d = cfg.data
+    appear = _open_store(d.appearance_feat_dir)
+    motion = None
+    if d.motion_feat_dir and d.motion_feat_dir != d.appearance_feat_dir:
+        motion = _open_store(d.motion_feat_dir)
+    text = TextFeatureStore(
+        _open_store(os.path.join(d.t_feat_dir, "tokens.cfs")),
+        _open_store(os.path.join(d.t_feat_dir, "cls.cfs")),
+    )
+    return GroundingDataset(data_path, appear, text, d, video_motion_store=motion)
+
+
+def _restore(args, cfg):
+    from cone_tpu_torch.train.checkpoint import load_model
+
+    model, epoch = load_model(args.workdir, args.ckpt, device=args.device, cfg=cfg)
+    print(f"restored '{args.ckpt}' (epoch {epoch})")
+    return model
+
+
+def cmd_infer(args):
+    from cone_tpu_torch.train.checkpoint import load_config
+    from cone_tpu_torch.train.loop import build_family, evaluate
+    from cone_tpu_torch.utils.io import save_jsonl
+
+    cfg = _apply_overrides(load_config(args.workdir), args.set)
+    if args.untrained:
+        # the reference's --eval_untrained debug flag (cone/config.py:62):
+        # score the fresh-init model, no checkpoint needed
+        model = build_family(cfg, seed=cfg.train.seed, device=args.device)
+        print("evaluating UNTRAINED (fresh-init) weights")
+    else:
+        model = _restore(args, cfg)
+
+    eval_ds = _open_dataset(cfg, args.eval_path or cfg.data.eval_path)
+    res = evaluate(model, eval_ds, cfg, host_postproc=not args.fast_postproc,
+                   fused=args.fused, device=args.device)
+    for t in res["tables"].values():
+        print(t)
+    # --results_dir redirects all outputs away from the train workdir (the
+    # reference's --eval_results_dir, cone/config.py:233, :195-196)
+    out_dir = args.results_dir or args.workdir
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"inference_{args.ckpt}_preds.jsonl")
+    save_jsonl(res["submissions"]["fusion"], out)
+    print(f"wrote {out}")
+    if args.save_all:
+        # all three scoring modalities (the reference's --save_all,
+        # cone/config.py:124 + inference.py:322-331 ablation outputs)
+        for name in ("proposal", "matching"):
+            if name in res["submissions"]:
+                p = os.path.join(out_dir,
+                                 f"inference_{args.ckpt}_{name}_preds.jsonl")
+                save_jsonl(res["submissions"][name], p)
+                print(f"wrote {p}")
+    # coarse-stage ranklists, evaluable standalone via `eval --ranklists`
+    # (the reference saves these for evaluate_pre_filtered_window.py)
+    rank_out = os.path.join(out_dir, f"inference_{args.ckpt}_windows.jsonl")
+    save_jsonl(
+        [{"query_id": q, "ranklist": [int(w) for w in r]}
+         for q, r in res["ranklists"].items()],
+        rank_out,
+    )
+    print(f"wrote {rank_out}")
+
+    from cone_tpu_torch.eval.submission import to_ego4d_challenge, write_submission
+
+    sub_path = os.path.join(
+        out_dir,
+        f"submission_{cfg.data.dset_name}_{args.ckpt}."
+        + ("json" if cfg.data.dset_name == "ego4d" else "jsonl"),
+    )
+    write_submission(res["submissions"]["fusion"], sub_path, cfg.data.dset_name)
+    print(f"wrote {sub_path}")
+
+    if args.ego4d_gt:
+        from cone_tpu_torch.eval.metrics import display_ego4d_results, evaluate_ego4d_nlq
+        from cone_tpu_torch.utils.io import load_json
+
+        gt = load_json(args.ego4d_gt)
+        preds = to_ego4d_challenge(res["submissions"]["fusion"])["results"]
+        results, miou = evaluate_ego4d_nlq(preds, gt, [0.3, 0.5], [1, 5, 10, 50, 100])
+        print(display_ego4d_results(results, miou, [0.3, 0.5],
+                                    [1, 5, 10, 50, 100], title="Official Ego4D"))
+
+
+def cmd_eval(args):
+    """Standalone metric evaluation over submission files, the counterpart
+    of the reference's standalone_eval CLIs (evaluate_ego4d_nlq.py:140-171,
+    evaluate_mad.py:119-150): recall tables from files alone, no model or
+    features needed."""
+    if not args.ranklists and not args.submission:
+        raise SystemExit("--submission is required (unless --ranklists)")
+    from cone_tpu_torch.eval.metrics import (
+        display_ego4d_results, display_recall_table, evaluate_ego4d_nlq,
+        evaluate_recall_table, mean_first_iou,
+    )
+    from cone_tpu_torch.utils.io import load_json, load_jsonl
+
+    if args.thresholds:
+        thresholds = [float(x) for x in args.thresholds]
+    else:
+        thresholds = [0.1, 0.3, 0.5] if args.dset == "mad" else [0.3, 0.5]
+    topk = [int(x) for x in args.topK] if args.topK else [1, 5, 10, 50, 100]
+
+    if args.ranklists:
+        # coarse-stage window recall from a saved ranklist file (the
+        # reference's evaluate_pre_filtered_window.py standalone CLI)
+        from cone_tpu_torch.eval.metrics import (
+            display_window_results, evaluate_window_ranklists,
+        )
+
+        assert args.gt, "window-recall eval needs --gt (flat jsonl)"
+        gt = load_jsonl(args.gt)
+        ranklists = {r["query_id"]: r["ranklist"]
+                     for r in load_jsonl(args.ranklists)}
+        wtopk = [int(x) for x in args.topK] if args.topK else [1, 5, 10, 30, 50]
+        rec = evaluate_window_ranklists(
+            ranklists, gt, wtopk, args.clip_length, args.max_v_l,
+            match_number=not args.no_match_number)
+        table = display_window_results(
+            rec, wtopk, title=args.title or "Window Pre-filtering")
+        print(table)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(table + "\n")
+        if args.expect:
+            # window-recall metrics are R<k> (no IoU threshold)
+            _expect_diff(args.expect, args.expect_tol,
+                         {f"R{k}": 100 * float(rec[i])
+                          for i, k in enumerate(wtopk)})
+        return
+
+    assert args.gt or args.ego4d_gt, "need --gt (flat jsonl) or --ego4d_gt"
+    if args.ego4d_gt:
+        # nested challenge GT json + challenge-format submission json
+        gt = load_json(args.ego4d_gt)
+        sub = load_json(args.submission)
+        preds = sub["results"] if isinstance(sub, dict) else sub
+        results, miou = evaluate_ego4d_nlq(preds, gt, thresholds, topk)
+        table = display_ego4d_results(results, miou, thresholds, topk,
+                                      title=args.title or "Official Ego4D")
+        computed = {(k, t): 100 * float(results[ti][ki])
+                    for ki, k in enumerate(topk)
+                    for ti, t in enumerate(thresholds)}
+    else:
+        # flat jsonl GT (query_id + timestamps) + flat submission jsonl
+        gt = load_jsonl(args.gt)
+        sub = load_jsonl(args.submission)
+        recall = evaluate_recall_table(sub, gt, thresholds, topk,
+                                       match_number=not args.no_match_number)
+        miou = mean_first_iou(sub, gt) if args.dset == "ego4d" else None
+        table = display_recall_table(recall, thresholds, topk,
+                                     title=args.title, mIoU=miou)
+        computed = {(k, t): 100 * float(recall[ki][ti])
+                    for ki, k in enumerate(topk)
+                    for ti, t in enumerate(thresholds)}
+    print(table)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(table + "\n")
+    if args.expect:
+        named = {f"R{k}@{t:g}": v for (k, t), v in computed.items()}
+        if miou is not None:
+            named["mIoU"] = 100 * float(miou)
+        _expect_diff(args.expect, args.expect_tol, named)
+
+
+def _expect_diff(expect: str, tol: float, computed: dict):
+    """--expect parity diff against a published row: comma-separated
+    <name>=<percent> entries where <name> is a key of the computed table:
+    R<k>@<t> (recall tables), R<k> (window recall), or mIoU. Prints one
+    ok/FAIL line per entry; SystemExit on any miss."""
+    fails = []
+    for item in expect.split(","):
+        name, want = item.split("=")
+        name = name.strip()
+        if name.lower() == "miou":
+            key = "mIoU"
+        elif "@" in name and name.startswith("R"):
+            kk, tt = name[1:].split("@")  # normalize R1@0.30 -> R1@0.3
+            key = f"R{int(kk)}@{float(tt):g}"
+        else:
+            key = name
+        assert key in computed, (
+            f"--expect {name}: not in the computed table "
+            f"(available: {', '.join(computed)})")
+        got = computed[key]
+        delta = got - float(want)
+        line = f"{name}: got {got:.2f}, expected {float(want):.2f} " \
+               f"(delta {delta:+.2f}, tol {tol})"
+        print(("  ok   " if abs(delta) <= tol else "  FAIL ") + line)
+        if abs(delta) > tol:
+            fails.append(name)
+    if fails:
+        raise SystemExit(f"parity check FAILED: {', '.join(fails)}")
+    print("parity check PASSED")
+
+
+def cmd_ensemble(args):
+    """Fuse N models' prediction jsonls (ECCV'22 challenge recipe,
+    ECCV_2022_workshop/ensemble.py:104-146). Rows are aligned by query_id
+    (the reference zips three files written in the same order; sorting by
+    query_id makes that robust to file order)."""
+    from cone_tpu_torch.eval.ensemble import ensemble_predictions
+    from cone_tpu_torch.utils.io import load_jsonl, save_jsonl
+
+    subs = [sorted(load_jsonl(p), key=lambda r: str(r["query_id"]))
+            for p in args.inputs]
+    qids = [tuple(r["query_id"] for r in s) for s in subs]
+    assert all(q == qids[0] for q in qids), "inputs cover different query sets"
+    fused = ensemble_predictions(subs, max_input=args.max_input,
+                                 top1_max_input=args.top1_max_input)
+    save_jsonl(fused, args.output)
+    print(f"wrote {len(fused)} fused rows to {args.output}")
+
+
+def cmd_serve(args):
+    """HTTP serving front end over a trained workdir (serve/server.py):
+    /search across the resident corpus, /localize for one-shot videos,
+    /add_video, /healthz, /stats."""
+    if args.text_backend:
+        raise NotImplementedError(
+            "--text_backend: raw-text queries need the CLIP/EgoVLP text towers, "
+            "which are not ported yet (ROADMAP Queue 1 item 12); send "
+            "token_features and cls_feature with each request")
+    from cone_tpu_torch.serve.server import MomentService, make_server
+    from cone_tpu_torch.train.checkpoint import load_config
+
+    cfg = _apply_overrides(load_config(args.workdir), args.set)
+    model = _restore(args, cfg)
+    ds = _open_dataset(cfg, args.preload_path) if args.preload_path else None
+    service = MomentService(model, cfg, dataset=ds,
+                            batch_window_ms=args.batch_window_ms,
+                            max_batch=args.max_batch, device=args.device)
+    if args.load_corpus:
+        n = service.retriever.load_corpus(args.load_corpus)
+        print(f"loaded {n} videos from {args.load_corpus}")
+    srv = make_server(service, host=args.host, port=args.port)
+    print(f"serving {len(service.retriever.clip_ids)} videos on "
+          f"http://{srv.server_address[0]}:{srv.server_address[1]}", flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a card)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="cone_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    i = sub.add_parser("infer", help="evaluate a checkpoint")
+    i.add_argument("--workdir", required=True)
+    i.add_argument("--ckpt", default="best")
+    i.add_argument("--eval_path")
+    i.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
+    i.add_argument("--fast_postproc", action="store_true",
+                   help="batched on-device fusion+NMS instead of the"
+                        " reference-exact host path")
+    i.add_argument("--ego4d_gt",
+                   help="official nested Ego4D GT json: also run the"
+                        " challenge evaluator")
+    i.add_argument("--fused", action="store_true",
+                   help="fused inference (fastest; device postproc, all"
+                        " three scoring modalities)")
+    i.add_argument("--results_dir",
+                   help="write predictions/submissions here instead of the"
+                        " workdir (reference --eval_results_dir)")
+    i.add_argument("--save_all", action="store_true",
+                   help="also write the proposal/matching modality"
+                        " prediction files (reference --save_all)")
+    i.add_argument("--untrained", action="store_true",
+                   help="evaluate fresh-init weights, no checkpoint"
+                        " (reference --eval_untrained, cone/config.py:62)")
+    _add_device(i)
+    i.set_defaults(fn=cmd_infer)
+
+    s = sub.add_parser("serve", help="HTTP moment-retrieval server over a"
+                                     " trained workdir")
+    s.add_argument("--workdir", required=True)
+    s.add_argument("--ckpt", default="best")
+    s.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8080)
+    s.add_argument("--preload_path",
+                   help="jsonl whose videos preload into the corpus (uses"
+                        " the workdir config's feature stores)")
+    s.add_argument("--text_backend", choices=["clip", "egovlp"],
+                   help="accept raw-text queries (not ported yet: raises;"
+                        " requests must carry token/cls features)")
+    s.add_argument("--batch_window_ms", type=float, default=0.0,
+                   help="dynamic /search micro-batching: concurrent requests"
+                        " arriving within this window share one device sweep"
+                        " (0 = off, one dispatch per request)")
+    s.add_argument("--max_batch", type=int, default=32,
+                   help="micro-batching cap per device sweep")
+    s.add_argument("--load_corpus",
+                   help="directory written by /save_corpus (or"
+                        " CorpusRetriever.save_corpus) to rebuild the"
+                        " serving library from at startup")
+    _add_device(s)
+    s.set_defaults(fn=cmd_serve)
+
+    v = sub.add_parser("eval", help="recall tables from submission files"
+                                    " (standalone, no model)")
+    v.add_argument("--submission",
+                   help="prediction jsonl (flat) or challenge json (ego4d"
+                        " official, with --ego4d_gt); not used in"
+                        " --ranklists mode")
+    v.add_argument("--gt", help="flat GT jsonl (query_id + timestamps)")
+    v.add_argument("--ego4d_gt", help="official nested Ego4D GT json")
+    v.add_argument("--dset", choices=["ego4d", "mad"], default="ego4d",
+                   help="default thresholds (ego4d: 0.3/0.5 + mIoU;"
+                        " mad: 0.1/0.3/0.5)")
+    v.add_argument("--thresholds", nargs="+")
+    v.add_argument("--topK", nargs="+")
+    v.add_argument("--no_match_number", action="store_true",
+                   help="evaluate the intersection of query ids instead of"
+                        " requiring identical sets")
+    v.add_argument("--ranklists",
+                   help="window-ranklist jsonl (from `infer`): report"
+                        " coarse-stage window recall instead"
+                        " (evaluate_pre_filtered_window.py)")
+    v.add_argument("--clip_length", type=float, default=0.535,
+                   help="seconds per clip (window-recall mode)")
+    v.add_argument("--max_v_l", type=int, default=90,
+                   help="window length in clips (window-recall mode)")
+    v.add_argument("--title")
+    v.add_argument("--out", help="append the table to this file")
+    v.add_argument("--expect",
+                   help="parity diff: comma list of R<k>@<t>=<percent> /"
+                        " mIoU=<percent> (e.g. the reference README row"
+                        " 'R1@0.3=14.15,R5@0.3=30.33'); exits nonzero if"
+                        " any metric is off by more than --expect_tol")
+    v.add_argument("--expect_tol", type=float, default=0.5,
+                   help="absolute tolerance in recall points for --expect")
+    v.set_defaults(fn=cmd_eval)
+
+    n = sub.add_parser("ensemble", help="fuse N prediction jsonls"
+                                        " (ECCV'22 recipe)")
+    n.add_argument("--inputs", nargs="+", required=True,
+                   help="2+ prediction jsonls (from `infer`)")
+    n.add_argument("--output", required=True)
+    n.add_argument("--max_input", type=int, default=4,
+                   help="top-N rows taken from each model")
+    n.add_argument("--top1_max_input", type=int, default=1,
+                   help="rows per model fed to the clustered top-1 synthesis")
+    n.set_defaults(fn=cmd_ensemble)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Small host utilities: json/jsonl io and normalization
-(counterparts of utils/basic_utils.py in the reference)."""
+"""Small host utilities: json/jsonl io, normalization and ascii tables
+(counterparts of utils/basic_utils.py in the reference; the ascii table
+stands in for its terminaltables dependency)."""
 
 from __future__ import annotations
 
@@ -44,3 +45,27 @@ def min_max_normalize(values):
     if amin == amax:
         return list(values)
     return [(v - amin) / (amax - amin) for v in values]
+
+
+def ascii_table(rows, title=None) -> str:
+    """Minimal centered ascii table, same shape as the reference's
+    terminaltables output."""
+    ncol = max(len(r) for r in rows)
+    cells = [[str(c).split("\n") for c in r] + [[""]] * (ncol - len(r)) for r in rows]
+    widths = [0] * ncol
+    for r in cells:
+        for j, lines in enumerate(r):
+            widths[j] = max(widths[j], max(len(x) for x in lines))
+    sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+    top = sep if not title else "+" + title + "-" * max(0, len(sep) - 2 - len(title)) + "+"
+    out = [top]
+    for r in cells:
+        height = max(len(lines) for lines in r)
+        for k in range(height):
+            line = "|"
+            for j, lines in enumerate(r):
+                cell = lines[k] if k < len(lines) else ""
+                line += " " + cell.center(widths[j]) + " |"
+            out.append(line)
+        out.append(sep)
+    return "\n".join(out)

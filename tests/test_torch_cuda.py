@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card, each against its plain PyTorch
-version. Marked `cuda`: without a card every test here skips. The file
+"""The port's CUDA kernels (coarse segment max, masked attention) on the
+card, each against its plain PyTorch version. Marked `cuda`: without a card every test here skips. The file
 imports neither jax nor cone_tpu, so it runs on a machine with PyTorch
 alone, without the JAX-side conftest:
 
@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from cone_tpu_torch.ops import attention as at
 from cone_tpu_torch.ops import coarse as co
+from cone_tpu_torch.tools import bench_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +69,68 @@ def test_coarse_kernel_raises_instead_of_falling_back(card, bad):
     with pytest.raises(ValueError):
         co.coarse_segment_max(feats, cls, torch.tensor([150], dtype=torch.int32, device=card), 45)
     assert co.coarse_segment_max.launches == before
+
+
+# ---------------------------------------------------------------- attention
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,lq,lk,d,h", [
+    (640, 110, 110, 256, 8),   # the fine stage's serving shape
+    (16, 5, 110, 256, 8),      # the decoder's cross-attention: Lq != Lk
+    (3, 110, 110, 128, 8),     # head width 16, B a multiple of nothing
+    (3, 37, 70, 256, 4),       # head width 64
+    (2, 1, 1, 64, 2),          # L 1
+    (2, 9, 200, 512, 4),       # head width 128, seven key groups
+])
+def test_attention_kernel_matches_plain(card, dtype, b, lq, lk, d, h):
+    q, k, v, mask = bench_attn.make_inputs(b, lq, lk, d, dtype, card, seed=1)
+    before = at.masked_attention.launches
+    err, tol, got = bench_attn.compare(q, k, v, mask, h)
+    assert at.masked_attention.launches == before + 1
+    assert got.shape == (b, lq, d) and got.dtype == dtype and err <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["fully_masked_row", "nothing_masked", "no_mask"])
+def test_attention_kernel_mask_edges(card, dtype, case):
+    q, k, v, mask = bench_attn.make_inputs(4, 110, 110, 256, dtype, card, seed=2)
+    if case == "fully_masked_row":
+        mask[1] = True            # every key of window 1 is padding
+    elif case == "nothing_masked":
+        mask[:] = False
+    else:
+        mask = None
+    err, tol, got = bench_attn.compare(q, k, v, mask, 8)
+    assert torch.isfinite(got).all() and err <= tol
+    if case == "fully_masked_row":
+        # uniform weights: every query row of the window is the mean of v
+        want = v[1].float().mean(0).expand(110, 256)
+        torch.testing.assert_close(got[1].float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["keys", "head_dim", "smem", "not_contiguous",
+                                 "mixed_dtype", "float16", "heads", "mask_dtype"])
+def test_attention_kernel_raises_instead_of_falling_back(card, bad):
+    b, lq, lk, d, h, dtype = 2, 8, 8, 64, 4, torch.float32
+    if bad == "keys":
+        lk = at.MAX_KEYS + 1
+    elif bad == "head_dim":
+        d, h = 512, 2
+    elif bad == "smem":
+        lk, d, h = 256, 512, 4     # 2 * 256 * 129 * 4 bytes > 227 KB
+    elif bad == "heads":
+        h = 5
+    elif bad == "float16":
+        dtype = torch.float16
+    q, k, v, mask = bench_attn.make_inputs(b, lq, lk, d, torch.float32, card)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    if bad == "not_contiguous":
+        k = k.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "mixed_dtype":
+        v = v.to(torch.bfloat16)
+    elif bad == "mask_dtype":
+        mask = mask.to(torch.uint8)
+    before = at.masked_attention.launches
+    with pytest.raises((ValueError, TypeError)):
+        at.masked_attention(q, k, v, mask, h)
+    assert at.masked_attention.launches == before

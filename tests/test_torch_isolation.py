@@ -1,7 +1,8 @@
-"""The port stands alone: `import cone_tpu_torch` (every module of it)
-loads neither jax nor cone_tpu, no source under cone_tpu_torch/ or
-chip_smoke.py imports them, and the entry points default to the card and
-raise without one instead of carrying on elsewhere."""
+"""The port stands alone: `import cone_tpu_torch` (every module of it, the
+serving path, the CLI and the tools included) loads neither jax, flax,
+msgpack nor cone_tpu, no source under cone_tpu_torch/ or chip_smoke.py
+imports them, and the entry points default to the card and raise without
+one instead of carrying on elsewhere."""
 
 import os
 import pkgutil
@@ -19,7 +20,15 @@ from cone_tpu_torch.models.cone import ConeModel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "cone_tpu_torch")
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|cone_tpu)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|cone_tpu)(\.|\s|$)", re.M)
+NEW_MODULES = [
+    "cone_tpu_torch.__main__", "cone_tpu_torch.cli", "cone_tpu_torch.eval.ensemble",
+    "cone_tpu_torch.eval.metrics", "cone_tpu_torch.eval.submission",
+    "cone_tpu_torch.ops.attention", "cone_tpu_torch.serve.corpus",
+    "cone_tpu_torch.serve.localizer", "cone_tpu_torch.serve.server",
+    "cone_tpu_torch.tools.bench_attn", "cone_tpu_torch.train.checkpoint",
+    "cone_tpu_torch.train.loop"]
 
 
 def _modules():
@@ -33,7 +42,7 @@ def test_import_loads_no_jax_and_no_cone_tpu():
         "for m in ['cone_tpu_torch'] + mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'cone_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'cone_tpu'))\n"
         "assert not bad, bad\n"
         "from cone_tpu_torch.kernels import build\n"
         "assert build.load_library.cache_info().currsize == 0  # nothing built or loaded\n"
@@ -42,7 +51,11 @@ def test_import_loads_no_jax_and_no_cone_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 15 + len(NEW_MODULES)
+
+
+def test_the_walk_finds_the_serving_slice():
+    assert set(NEW_MODULES) <= set(_modules())
 
 
 @pytest.mark.parametrize("path", [os.path.join(REPO, "chip_smoke.py")] + sorted(
@@ -63,3 +76,42 @@ def test_default_device_is_the_card_and_raises_without_one():
     ds = make_synthetic_dataset(cfg.data, n_videos=1, queries_per_video=1, dim=256)
     with pytest.raises(RuntimeError, match="cuda"):
         InferencePipeline(model, ds, cfg)
+
+
+@pytest.mark.parametrize("entry", ["localizer", "retriever", "service", "evaluate",
+                                   "build_family", "load_model", "cli_infer", "cli_serve",
+                                   "bench_attn"])
+def test_serving_entry_points_default_to_the_card(entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from cone_tpu_torch import cli
+    from cone_tpu_torch.config import ConeConfig
+    from cone_tpu_torch.serve.corpus import CorpusRetriever
+    from cone_tpu_torch.serve.localizer import OnlineLocalizer
+    from cone_tpu_torch.serve.server import MomentService
+    from cone_tpu_torch.tools import bench_attn
+    from cone_tpu_torch.train.checkpoint import load_model
+    from cone_tpu_torch.train.loop import build_family, evaluate
+
+    mcfg = ModelConfig(hidden_dim=32, nheads=4, dim_feedforward=64, t_feat_dim=32,
+                       v_motion_feat_dim=32, v_appear_feat_dim=32)
+    cfg = ConeConfig(model=mcfg)
+    model = ConeModel(mcfg, device="cpu")
+    cfg.save(str(tmp_path / "config.json"))
+    torch.save({"model": model.state_dict(), "epoch": 1}, str(tmp_path / "model_best.ckpt"))
+    calls = {
+        "localizer": lambda: OnlineLocalizer(model, cfg),
+        "retriever": lambda: CorpusRetriever(model, cfg),
+        "service": lambda: MomentService(model, cfg),
+        "evaluate": lambda: evaluate(model, None, cfg),
+        "build_family": lambda: build_family(cfg, seed=0),
+        "load_model": lambda: load_model(str(tmp_path)),
+        "cli_infer": lambda: cli.main(["infer", "--workdir", str(tmp_path), "--untrained"]),
+        "cli_serve": lambda: cli.main(["serve", "--workdir", str(tmp_path)]),
+        "bench_attn": lambda: bench_attn.main([]),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()
+    # the same workdir loads when the caller asks for the CPU
+    if entry == "load_model":
+        assert load_model(str(tmp_path), device="cpu")[1] == 1
