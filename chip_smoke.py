@@ -9,9 +9,11 @@ Phases, each of which raises (exit code != 0) on failure:
      off for matmuls and cuDNN;
   2. build every CUDA kernel under cone_tpu_torch/csrc/ (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version at its path's shape, at
-     MAD scale and at edge cases: error, window-ranklist agreement, kernel /
-     plain / library times beside the analytic bound. The coarse kernel at
-     the Ego4D shape; the attention kernel through its own entry point
+     MAD scale and at the seams of its tiling: error, window-ranklist
+     agreement (near-tie flips counted), kernel / plain / library times
+     beside the analytic bound, device time per launch from torch.profiler.
+     The coarse kernel at the Ego4D and MAD shapes and with every template
+     instance; the attention kernel through its own entry point
      (cone_tpu_torch.tools.bench_attn.run) at B 640, L 110, D 256, H 8 in
      float32 and bfloat16;
   4. the main path: fused CONE inference (InferencePipeline.run(fused=True))
@@ -52,13 +54,16 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def coarse_case(label, b, q, l_pad, d, stride, ctx, peaks, iters, gen):
-    """Kernel vs plain on one shape; returns the measurements."""
+def coarse_case(label, b, q, l_pad, d, stride, ctx, peaks, iters, gen, spb=None):
+    """Kernel vs plain on one shape; returns the measurements. `spb`
+    overrides the plan's segments per block, to land on a run's seams;
+    iters 0 checks without timing."""
     import torch
     import torch.nn.functional as F
 
     from cone_tpu_torch.ops import coarse as co
     from cone_tpu_torch.ops.windows import num_windows
+    from cone_tpu_torch.tools.bench_kernels import kernel_device_us
     from cone_tpu_torch.utils.device import cuda_ms
 
     dev = torch.device("cuda")
@@ -70,10 +75,12 @@ def coarse_case(label, b, q, l_pad, d, stride, ctx, peaks, iters, gen):
     cls = cls / cls.norm(dim=-1, keepdim=True)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
 
-    got = co.coarse_segment_max(feats, cls, ctx_t, stride)
+    got = co.coarse_segment_max(feats, cls, ctx_t, stride, spb)
     torch.cuda.synchronize()
     want = co.coarse_segment_max_plain(feats, cls, ctx_t, stride)
     n_seg = -(-l_pad // stride)
+    spb = co.plan(n_seg, b)["segs_per_block"] if spb is None else spb
+    ntw = co.layout(q, d, l_pad, stride, spb)["ntw"]    # the template instance launched
     check(got.shape == want.shape == (b, q, n_seg), f"{label}: shape {tuple(got.shape)}")
     seg_valid = (torch.arange(n_seg, device=dev)[None, :]
                  < (ctx_t[:, None] + stride - 1) // stride)[:, None, :].expand_as(got)
@@ -98,21 +105,29 @@ def coarse_case(label, b, q, l_pad, d, stride, ctx, peaks, iters, gen):
         check(bool((ps[..., :-1] >= ps[..., 1:] - tol[..., 1:]).all()),
               f"{label}: window ranklists differ beyond near-ties")
 
+    if not iters:
+        print(f"coarse_segment_max {label}: B={b} Q={q} L={l_pad} D={d} stride={stride} "
+              f"ctx_l={list(ctx)[:4]} segs_per_block={spb} instance={ntw} "
+              f"max_abs_err={err:.3e} window_flips={flips}", flush=True)
+        return dict(label=label, max_abs_err=err, window_flips=flips, ntw=ntw)
     ms = cuda_ms(lambda: co.coarse_segment_max(feats, cls, ctx_t, stride), iters)
     plain_ms = cuda_ms(lambda: co.coarse_segment_max_plain(feats, cls, ctx_t, stride), iters)
     library_ms = cuda_ms(lambda: F.max_pool1d(torch.matmul(cls, feats.mT), stride, stride,
                                               ceil_mode=True), iters)
+    device_us = kernel_device_us(lambda: co.coarse_segment_max(feats, cls, ctx_t, stride),
+                                 "coarse_segment_max_kernel", 50)
     frames = sum(min(c, l_pad) for c in ctx)
     nbytes = 4 * (frames * d + b * q * d + b + b * q * n_seg)
     flops = 2 * q * frames * d
     t_bytes, t_ops = nbytes / peaks["bytes"] * 1e3, flops / peaks["float32"] * 1e3
-    res = dict(label=label, B=b, Q=q, L=l_pad, D=d, stride=stride, ctx_l=list(ctx),
+    res = dict(label=label, B=b, Q=q, L=l_pad, D=d, stride=stride, ctx_l=list(ctx), ntw=ntw,
                max_abs_err=err, window_flips=flips, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               library_ms=library_ms, device_us=device_us, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     print(f"coarse_segment_max {label}: B={b} Q={q} L={l_pad} D={d} stride={stride} "
-          f"ctx_l={list(ctx)[:4]} max_abs_err={err:.3e} window_flips={flips} "
-          f"kernel={ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us "
+          f"ctx_l={list(ctx)[:4]} segs_per_block={spb} instance={ntw} max_abs_err={err:.3e} "
+          f"window_flips={flips} kernel={ms * 1e3:.2f}us (device {device_us:.2f}us per launch, "
+          f"torch.profiler) plain={plain_ms * 1e3:.2f}us "
           f"library(matmul+max_pool1d)={library_ms * 1e3:.2f}us "
           f"bound={res['bound_ms'] * 1e3:.2f}us ({res['bound_by']})", flush=True)
     return res
@@ -128,14 +143,20 @@ def attention_phase():
 
     from cone_tpu_torch.ops import attention as at
     from cone_tpu_torch.tools import bench_attn
+    from cone_tpu_torch.tools.bench_kernels import kernel_device_us
 
     at.masked_attention.launches = 0
     res = bench_attn.run(device="cuda", seed=0)
     launches = at.masked_attention.launches
     b, l, d, h = res["shapes"]
     for name, r in res["results"].items():
+        dtype = getattr(torch, name)
+        q, k, v, mask = bench_attn.make_inputs(b, l, l, d, dtype, "cuda")
+        r["device_us"] = kernel_device_us(lambda: at.masked_attention(q, k, v, mask, h),
+                                          "masked_attention_kernel")
         print(f"masked_attention {name}: B={b} L={l} D={d} H={h} max_abs_err="
               f"{r['max_abs_err']:.3e} (tol {r['tol']:.1e}) kernel={r['ms'] * 1e3:.2f}us "
+              f"(device {r['device_us']:.2f}us per launch, torch.profiler) "
               f"plain={r['plain_ms'] * 1e3:.2f}us library(sdpa, additive mask)="
               f"{r['library_ms'] * 1e3:.2f}us (its err {r['library_max_abs_err']:.1e}) "
               f"bound={r['bound_ms'] * 1e3:.2f}us ({r['bound_by']}: {r['bytes']} bytes, "
@@ -153,9 +174,25 @@ def attention_phase():
         ("hd64", 3, 110, 110, 256, 4, None),
         ("B3", 3, 110, 110, 256, 8, None),
         ("L1", 3, 1, 1, 256, 8, None),
+        ("3-query-chunks/Lk256", 2, 300, 256, 256, 8, None),
+        ("hd48", 2, 130, 40, 144, 3, None),
     ]
+    # Lq and Lk on either side of the 16-row tiles, at every head width; a
+    # fully masked window among the others. float32 beyond 128 keys of width
+    # 128 is beyond a block's shared memory: the wrapper refuses it (checked in
+    # tests/test_torch_cuda.py), so that one combination is left out
+    for hd in (16, 32, 64, 128):
+        for n in (15, 16, 17, 111, 112, 113, 256):
+            for lq, lk in ((n, n), (n, 110), (110, n)):
+                edge.append((f"hd{hd}/Lq{lq}/Lk{lk}", 3, lq, lk, 2 * hd, 2, "mask_row"))
+    n_seam = 0
     for label, eb, lq, lk, ed, eh, edit in edge:
         for dtype in (torch.float32, torch.bfloat16):
+            if at.smem_bytes(lq, lk, ed // eh, eh, 4 if dtype == torch.float32 else 2) \
+                    > at.MAX_SMEM_BYTES:
+                check(dtype == torch.float32 and ed // eh == 128 and lk > 128,
+                      f"{label}: unexpected shared-memory refusal")
+                continue
             q, k, v, mask = bench_attn.make_inputs(eb, lq, lk, ed, dtype, "cuda", seed=1)
             if edit == "mask_row":
                 mask[1] = True
@@ -171,8 +208,15 @@ def attention_phase():
                       f"{label}: fully masked row is not the mean of v")
             name = str(dtype).split(".")[-1]
             worst[name] = max(worst[name], err)
+            if label.startswith("hd") and "/" in label:
+                n_seam += 1     # 160 of these: one summary line below
+                continue
             print(f"masked_attention {label} {name}: B={eb} Lq={lq} Lk={lk} D={ed} H={eh} "
                   f"max_abs_err={err:.3e} (tol {tol:.1e})", flush=True)
+    print(f"masked_attention tile seams: {n_seam} cases (Lq, Lk in 15 16 17 111 112 113 256 "
+          f"x head width 16 32 64 128 x 2 types, a fully masked window in each) within "
+          f"tolerance; worst max_abs_err float32 {worst['float32']:.3e}, bfloat16 "
+          f"{worst['bfloat16']:.3e}", flush=True)
     return res, launches, worst
 
 
@@ -431,12 +475,10 @@ def _self_device_us(evt):
 
 def profile_breakdown(pipe, n_q):
     """torch.profiler over one warm fused run: device time by op and the
-    busy share of the run's wall; then the coarse kernel's device time per
-    launch at the Ego4D and MAD shapes."""
+    busy share of the run's wall. (The kernels' own device time per launch
+    is printed by phase 3 in every run.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from cone_tpu_torch.ops import coarse as co
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -451,39 +493,6 @@ def profile_breakdown(pipe, n_q):
     print(avgs.table(sort_by="self_cuda_time_total", row_limit=30))
     print(f"profiled fused run: {n_q} queries, wall {wall:.4f} s (profiler on), device time "
           f"{busy:.4f} s, busy share {busy / wall:.3f}", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for label, q, l_pad, d, stride in (("ego4d", 32, 2304, 256, 45), ("mad", 32, 36864, 512, 62)):
-        feats = torch.randn(1, l_pad, d, generator=gen, device="cuda")
-        cls = torch.randn(1, q, d, generator=gen, device="cuda")
-        ctx = torch.tensor([l_pad - 1], dtype=torch.int32, device="cuda")
-        co.coarse_segment_max(feats, cls, ctx, stride)
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            for _ in range(50):
-                co.coarse_segment_max(feats, cls, ctx, stride)
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if "coarse_segment_max_kernel" in e.key]
-        check(ev, "profiler recorded no coarse_segment_max_kernel launch")
-        print(f"coarse_segment_max {label}: device time per launch "
-              f"{_self_device_us(ev[0]) / ev[0].count:.2f} us over {ev[0].count} launches "
-              "(torch.profiler)", flush=True)
-    from cone_tpu_torch.ops import attention as at
-    from cone_tpu_torch.tools import bench_attn
-
-    b, l, d, h = bench_attn.SHAPE
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, mask = bench_attn.make_inputs(b, l, l, d, dtype, "cuda")
-        at.masked_attention(q, k, v, mask, h)
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            for _ in range(20):
-                at.masked_attention(q, k, v, mask, h)
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if "masked_attention_kernel" in e.key]
-        check(ev, "profiler recorded no masked_attention_kernel launch")
-        print(f"masked_attention {dtype}: device time per launch "
-              f"{_self_device_us(ev[0]) / ev[0].count:.2f} us over {ev[0].count} launches "
-              "(torch.profiler)", flush=True)
 
 
 def golden_on_card():
@@ -604,8 +613,29 @@ def main():
         coarse_case("ctx=k*stride", 2, 32, 2304, 256, 45, [2250 - 45, 900], peaks, 20, gen),
         coarse_case("ctx=last-frame", 1, 32, 2304, 256, 45, [2304], peaks, 20, gen),
         coarse_case("q>32,ragged-tail", 1, 40, 1000, 128, 62, [999], peaks, 20, gen),
+        # the seams of the kernel's tiling: runs of segments, 16-frame tiles,
+        # 32-column chunks, and every template instance (query tiles per item)
+        coarse_case("segment-straddles-tile", 1, 32, 720, 64, 45, [700], peaks, 0, gen, 3),
+        coarse_case("run-ends-at-ctx", 1, 32, 720, 64, 45, [8 * 45 - 20], peaks, 0, gen, 4),
+        coarse_case("run-ends-at-ctx-exactly", 1, 32, 720, 64, 45, [8 * 45], peaks, 0, gen, 4),
+        coarse_case("n_seg-not-multiple-of-run", 1, 32, 720, 64, 45, [700], peaks, 0, gen, 5),
+        coarse_case("one-block-per-video", 1, 32, 720, 64, 45, [700], peaks, 0, gen, 16),
+        coarse_case("q5", 3, 5, 520, 64, 45, [500, 90, 1], peaks, 0, gen, 2),
+        coarse_case("q40", 1, 40, 520, 64, 45, [500], peaks, 0, gen, 4),
+        coarse_case("q100", 1, 100, 520, 64, 62, [500], peaks, 0, gen, 3),
+        coarse_case("q128", 1, 128, 330, 128, 62, [300], peaks, 0, gen, 2),
+        coarse_case("b3-unequal-ctx-d512", 3, 32, 1600, 512, 62, [1500, 707, 62], peaks, 0, gen, 4),
+        coarse_case("mad-video-batch", 3, 32, 36864, 512, 62, [36000, 20000, 36864], peaks, 0, gen),
+        coarse_case("stride7", 1, 16, 330, 64, 7, [300], peaks, 0, gen, 9),
+        coarse_case("d100", 1, 32, 330, 100, 45, [300], peaks, 0, gen, 2),
+        coarse_case("one-frame-video", 2, 8, 330, 64, 45, [1, 300], peaks, 0, gen, 2),
     ]
-    main_case = cases[0]
+    main_case, mad_case = cases[0], cases[2]
+    check({c["ntw"] for c in cases} == {1, 2, 4, 8, 16},
+          f"coarse cases reached instances {sorted({c['ntw'] for c in cases})}, want all five")
+    print(f"coarse_segment_max: {len(cases)} cases, {sum(c['window_flips'] for c in cases)} "
+          f"window near-tie flips in all, worst max_abs_err "
+          f"{max(c['max_abs_err'] for c in cases):.3e}", flush=True)
     attn, attn_launches, attn_err = attention_phase()
 
     # 4. the main path: fused CONE inference at Ego4D width
@@ -718,15 +748,18 @@ def main():
     if args.profile:
         profile_breakdown(pipe, n_q)
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us")
     kernels = [dict(
         name="coarse_segment_max", route="cuda",
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
         replaces="cone_tpu/ops/pallas_coarse.py:66", launches=launches,
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
-        bound_by=main_case["bound_by"], library_ms=main_case["library_ms"])]
+        window_flips=sum(c["window_flips"] for c in cases),
+        shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
+        **{k: main_case[k] for k in keys},
+        mad=dict(shape="B 1, Q 32, L 36864, D 512, stride 62",
+                 max_abs_err=mad_case["max_abs_err"], **{k: mad_case[k] for k in keys}))]
     a32, a16 = attn["results"]["float32"], attn["results"]["bfloat16"]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels.append(dict(
         name="masked_attention", route="cuda",
         source="cone_tpu_torch/csrc/masked_attention.cu",

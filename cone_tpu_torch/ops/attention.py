@@ -1,4 +1,4 @@
-"""Masked multi-head attention core: softmax((q_h * hd^-0.5) k_h^T, masked
+"""Masked multi-head attention core: softmax((q_h k_h^T) * hd^-0.5, masked
 keys at -1e30) v_h per window and head, heads being column blocks of D.
 
 `masked_attention` replaces the TPU kernel tools/bench_attn.py:79
@@ -7,10 +7,17 @@ kernel csrc/masked_attention.cu. Like its TPU counterpart it is reached
 from its own entry point (cone_tpu_torch/tools/bench_attn.py) and not from
 the model: models/transformer.py keeps its explicit matmul + softmax.
 
-What bounds it on the card: in float32 the 4*B*H*Lq*Lk*hd operations on the
-FMA pipes, in bfloat16 the bytes of q, k, v and out. The kernel keeps the
-(B, H, Lq, Lk) logits and weights out of device memory and writes each
-head's columns in place; see the note at the top of the source.
+What bounds it on the card: in bfloat16 the bytes of q, k, v and out; in
+float32 the 4*B*H*Lq*Lk*hd operations if they ran on the FMA pipes. The
+kernel runs both products on the tensor cores (`mma.sync`: bfloat16 as it
+is, float32 as 3xTF32, each operand split into two TF32 parts and three
+products summed in fp32), stages a window's Q, K and V once by 16-byte
+`cp.async` for a group of heads that fills 256-byte rows (two blocks of
+eight warps an SM, so one block's loads overlap the other's products),
+keeps a whole row of logits and its softmax in registers, feeds the
+weights to P.V without leaving the registers, and writes each head's
+columns in place; see the note at the top of the source. `block_plan`
+below is the layout the kernel derives from the shape.
 
 Routing is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors take the plain PyTorch version beside it. There is no
@@ -25,17 +32,35 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30             # the package's mask value (models/transformer.py)
-MAX_KEYS = 256              # csrc/masked_attention.cu kMaxKeyGroups * 32
-MAX_HEAD_DIM = 128          # csrc/masked_attention.cu kMaxColGroups * 32
+MAX_KEYS = 256              # csrc/masked_attention.cu kMaxKeys
+MAX_HEAD_DIM = 128          # csrc/masked_attention.cu kMaxHeadDim
+HEAD_DIM_MULTIPLE = 16      # the k16 step of mma.sync.m16n8k16
 MAX_SMEM_BYTES = 232448     # opt-in dynamic shared memory per block (H100)
-_ROWS_IN_FLIGHT = 16        # csrc/masked_attention.cu kWarps * kRows
+_Q_CHUNK = 128              # csrc/masked_attention.cu kQChunk: query rows a block stages
+_ROW_BYTES, _PAD_BYTES = 256, 16    # kRowBytes, kPadBytes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def smem_bytes(lk: int, hd: int) -> int:
-    """Dynamic shared memory one block of the kernel needs: K_h and V_h as
-    fp32 rows of hd + 1 floats, plus the query rows in flight."""
-    return 4 * (2 * lk * (hd + 1) + _ROWS_IN_FLIGHT * hd)
+def block_plan(lq: int, lk: int, hd: int, nheads: int, itemsize: int) -> dict:
+    """The kernel's layout for one shape: a block owns one window, up to 128
+    query rows and `heads_per_block` heads (as many as fill a 256-byte row);
+    Q, K and V sit in shared memory in their own type, rows padded by 16
+    bytes, query rows to a multiple of 16, key rows to the instance's
+    16 * `key_tiles` (4, 7, 8 or 16 register tiles of 16 keys for Lk <= 64,
+    112, 128, 256; rows past Lk are zero; 7 is there for the fine stage's
+    110 tokens). Returns heads_per_block, the grid per window (head groups,
+    query chunks), `key_tiles` and `smem_bytes`."""
+    hb = min(max(_ROW_BYTES // (hd * itemsize), 1), nheads)
+    q_rows = 16 * -(-min(lq, _Q_CHUNK) // 16)
+    kt = 4 if lk <= 64 else 7 if lk <= 112 else 8 if lk <= 128 else 16
+    row = hb * hd * itemsize + _PAD_BYTES
+    return dict(heads_per_block=hb, grid=(-(-nheads // hb), -(-lq // _Q_CHUNK)),
+                key_tiles=kt, smem_bytes=(q_rows + 32 * kt) * row)
+
+
+def smem_bytes(lq: int, lk: int, hd: int, nheads: int, itemsize: int) -> int:
+    """Dynamic shared memory one block of the kernel needs."""
+    return block_plan(lq, lk, hd, nheads, itemsize)["smem_bytes"]
 
 
 def _check(q, k, v, key_padding_mask, nheads):
@@ -96,7 +121,7 @@ def _library():
         lib.masked_attention.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
         lib.masked_attention.restype = ctypes.c_int
-        lib.masked_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.masked_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.masked_attention_smem_bytes.restype = ctypes.c_size_t
         lib.masked_attention_max_keys.restype = ctypes.c_int
         lib.masked_attention_max_head_dim.restype = ctypes.c_int
@@ -104,7 +129,10 @@ def _library():
         lib.masked_attention_error_string.restype = ctypes.c_char_p
         if (lib.masked_attention_max_keys() != MAX_KEYS
                 or lib.masked_attention_max_head_dim() != MAX_HEAD_DIM
-                or lib.masked_attention_smem_bytes(110, 32) != smem_bytes(110, 32)):
+                or any(lib.masked_attention_smem_bytes(*shape) != smem_bytes(*shape)
+                       for shape in ((110, 110, 32, 8, 2), (110, 110, 32, 8, 4),
+                                     (40, 60, 64, 4, 2), (300, 256, 128, 3, 2),
+                                     (5, 17, 16, 2, 4)))):
             raise RuntimeError("ops/attention.py and csrc/masked_attention.cu disagree "
                                "on the kernel's limits")
         lib._argtypes_set = True
@@ -141,11 +169,17 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel takes a head width up to {MAX_HEAD_DIM}, got {hd}")
     if lk > MAX_KEYS:
         raise ValueError(f"kernel takes up to {MAX_KEYS} keys, got {lk}")
-    if smem_bytes(lk, hd) > MAX_SMEM_BYTES:
-        raise ValueError(f"Lk={lk}, head width {hd} needs {smem_bytes(lk, hd)} bytes of "
-                         f"shared memory (> {MAX_SMEM_BYTES})")
-    if b * h >= 2 ** 31:
-        raise ValueError(f"B * nheads = {b * h} exceeds the launch grid")
+    if hd % HEAD_DIM_MULTIPLE:
+        raise ValueError(f"kernel takes a head width that is a multiple of "
+                         f"{HEAD_DIM_MULTIPLE}, got {hd}")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    plan = block_plan(lq, lk, hd, h, q.element_size())
+    if plan["smem_bytes"] > MAX_SMEM_BYTES:
+        raise ValueError(f"Lq={lq}, Lk={lk}, head width {hd} in {q.dtype} needs "
+                         f"{plan['smem_bytes']} bytes of shared memory (> {MAX_SMEM_BYTES})")
+    if b >= 2 ** 31 or max(plan["grid"]) > 65535:
+        raise ValueError(f"B = {b}, grid {plan['grid']} per window exceeds the launch grid")
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -6,11 +6,20 @@ cone_tpu/ops/pallas_coarse.py:66 (`coarse_segment_max`, body `_kernel`
 
 What bounds it on the card: the bytes of the feature stream. Each frame
 row (D fp32) is read once and meets 2*Q*D flops, about 16 flops per byte
-at Q = 32, far below the card's fp32 ridge. The kernel therefore streams
-the features exactly once with coalesced loads, keeps the query matrix in
-shared memory, never writes the (Q, L) score matrix, and masks the ragged
-tail itself, so the caller does not copy the stream to pad it (the Pallas
-wrapper concatenated zero rows up to its tile).
+at Q = 32. To stay near that bound the product must not be the slower
+part, so the kernel computes it on the tensor cores as 3xTF32 (each fp32
+operand split into two TF32 parts, three `mma.sync` products summed in
+fp32), streams the frames through `cp.async` rings, and gives
+a block a run of consecutive segments so that the query matrix is staged
+once per block; each warp streams its own 16-frame tiles through a ring of
+its own (two chunks in flight, one being multiplied), with no block-wide
+barrier in the loop. `plan` below sizes the
+run (one segment per block while the grid does not fill the card, as at
+Ego4D; several at MAD) and `layout` mirrors what the launcher derives
+from the shape. The (Q, L) scores
+never reach device memory, and the kernel masks the ragged tail and
+`ctx_l` itself, so the caller does not copy the stream to pad it (the
+Pallas wrapper concatenated zero rows up to its tile).
 
 Routing is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors take the plain PyTorch version beside it. There is no
@@ -20,13 +29,61 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
-MAX_QUERIES = 128           # csrc/coarse_segment_max.cu kMaxQGroups * 32
+MAX_QUERIES = 128           # csrc/coarse_segment_max.cu kMaxQ
 MAX_SMEM_BYTES = 232448     # opt-in dynamic shared memory per block (H100)
+_TILE_COLS, _STAGE_FLOATS, _STAGES = 32, 16 * 36, 3   # kTileD, kStageFloats, kStages
+
+
+def layout(q: int, d: int, l_pad: int, stride: int, segs_per_block: int) -> dict:
+    """The kernel's layout for one shape, as its launcher derives it.
+
+    A warp's work item is 16 frames x `ntw` 8-query tiles. `ntw` starts at
+    all query tiles (rounded up to a power of two: the template instance)
+    and is halved while every (frame tile, query group) item of a block's
+    run still gets a warp of its own, so a short run (Ego4D: one 45-frame
+    segment) spreads over the block's warps by queries, as long as shared
+    memory holds the layout. `warps` is 16 while
+    a warp's sums fit (ntw <= 4), else 8. Shared memory holds the query
+    matrix (rows padded to whole items, columns to the 32-column chunk + 4),
+    the run's (segment, query) maxima and, per warp, a ring of three
+    16-frame chunks. A shape whose `smem_bytes` exceed a block's limit
+    is refused by the wrapper."""
+    n_qt = -(-q // 8)
+
+    def with_ntw(ntw):
+        warps = 16 if ntw <= 4 else 8
+        qpad = -(-n_qt // ntw) * ntw * 8
+        cls_ld = -(-d // _TILE_COLS) * _TILE_COLS + 4
+        return dict(ntw=ntw, warps=warps,
+                    smem_bytes=4 * (qpad * cls_ld + segs_per_block * qpad
+                                    + warps * _STAGES * _STAGE_FLOATS))
+
+    ntw = 1
+    while ntw < n_qt:
+        ntw *= 2
+    m_tiles = -(-min(segs_per_block * stride, l_pad) // 16)
+    while ntw > 1:
+        half = with_ntw(ntw // 2)
+        if m_tiles * -(-n_qt // (ntw // 2)) > half["warps"] \
+                or half["smem_bytes"] > MAX_SMEM_BYTES:
+            break
+        ntw //= 2
+    return with_ntw(ntw)
+
+
+def plan(n_seg: int, b: int, n_sm: int = 132) -> dict:
+    """How the launch is cut: `segs_per_block` consecutive segments of one
+    video per block, one block per SM, so that the whole grid is resident
+    at once and every block stages the queries once. While `n_seg * b`
+    blocks fit on the card a block owns one segment."""
+    spb = min(n_seg, max(1, -(-(n_seg * b) // n_sm)))
+    return dict(segs_per_block=spb, grid=(-(-n_seg // spb), b))
 
 
 def _check(feats, cls, ctx_l, stride):
@@ -69,18 +126,50 @@ def _library():
     lib = load_library("coarse_segment_max")
     if not getattr(lib, "_argtypes_set", False):
         lib.coarse_segment_max_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.coarse_segment_max_f32.restype = ctypes.c_int
-        lib.coarse_segment_max_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.coarse_segment_max_smem_bytes.restype = ctypes.c_size_t
+        lib.coarse_segment_max_layout.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+            + [ctypes.POINTER(ctypes.c_size_t)])
+        lib.coarse_segment_max_layout.restype = None
         lib.coarse_cuda_error_string.argtypes = [ctypes.c_int]
         lib.coarse_cuda_error_string.restype = ctypes.c_char_p
+        for shape in ((32, 256, 2304, 45, 1), (32, 512, 36864, 62, 5), (5, 16, 90, 45, 2),
+                      (128, 100, 4000, 7, 40), (40, 64, 520, 45, 4), (128, 512, 200, 45, 1)):
+            ntw, warps, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()
+            lib.coarse_segment_max_layout(*shape, ntw, warps, nbytes)
+            if dict(ntw=ntw.value, warps=warps.value, smem_bytes=nbytes.value) \
+                    != layout(*shape):
+                raise RuntimeError("ops/coarse.py and csrc/coarse_segment_max.cu disagree "
+                                   f"on the kernel's layout at {shape}")
         lib._argtypes_set = True
     return lib
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _segs_per_block(b, q, l_pad, d, stride, segs_per_block, n_sm) -> int:
+    """The run length of one launch, checked against the kernel's limits;
+    cached by shape, since a serving path repeats a few shapes."""
+    n_seg = -(-l_pad // stride)
+    spb = plan(n_seg, b, n_sm)["segs_per_block"] if segs_per_block is None \
+        else int(segs_per_block)
+    if not 1 <= spb <= n_seg:
+        raise ValueError(f"segs_per_block must be in 1..{n_seg}, got {spb}")
+    smem = layout(q, d, l_pad, stride, spb)["smem_bytes"]
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"Q={q}, D={d}, {spb} segments per block needs {smem} bytes of "
+                         f"shared memory (> {MAX_SMEM_BYTES})")
+    return spb
+
+
 def coarse_segment_max(feats: torch.Tensor, cls: torch.Tensor,
-                       ctx_l: torch.Tensor, stride: int) -> torch.Tensor:
+                       ctx_l: torch.Tensor, stride: int,
+                       segs_per_block: int | None = None) -> torch.Tensor:
     """Per-stride-segment max similarity.
 
     Args:
@@ -88,6 +177,8 @@ def coarse_segment_max(feats: torch.Tensor, cls: torch.Tensor,
         cls: (B, Q, D) float32 query CLS features.
         ctx_l: (B,) int32 valid frame counts, on the same device.
         stride: segment length (max_v_l // 2).
+        segs_per_block: overrides `plan`'s run length (kernel only; for
+            measurements and tests of the run's seams).
 
     Returns:
         (B, Q, ceil(L_pad / stride)) float32; a segment with no frame below
@@ -106,17 +197,18 @@ def coarse_segment_max(feats: torch.Tensor, cls: torch.Tensor,
         raise ValueError(f"kernel needs D % 4 == 0 and 16-byte aligned rows (D={d})")
     if not 1 <= q <= MAX_QUERIES:
         raise ValueError(f"kernel takes 1..{MAX_QUERIES} queries, got {q}")
-    lib = _library()
-    smem = lib.coarse_segment_max_smem_bytes(q, d)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"Q={q}, D={d} needs {smem} bytes of shared memory "
-                         f"(> {MAX_SMEM_BYTES})")
+    if b > 65535:
+        raise ValueError(f"kernel takes up to 65535 videos per launch, got {b}")
     n_seg = -(-l_pad // stride)
+    dev_index = feats.device.index if feats.device.index is not None \
+        else torch.cuda.current_device()
+    spb = _segs_per_block(b, q, l_pad, d, int(stride), segs_per_block, _sm_count(dev_index))
+    lib = _library()
     out = torch.empty((b, q, n_seg), dtype=torch.float32, device=feats.device)
     with torch.cuda.device(feats.device):
         rc = lib.coarse_segment_max_f32(
             feats.data_ptr(), cls.data_ptr(), ctx_l.data_ptr(), out.data_ptr(),
-            b, l_pad, d, q, int(stride), n_seg,
+            b, l_pad, d, q, int(stride), n_seg, spb,
             torch.cuda.current_stream(feats.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"coarse_segment_max launch failed: CUDA error {rc} "

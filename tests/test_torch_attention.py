@@ -9,6 +9,8 @@ CPU, where the wrapper takes the plain PyTorch version.
   * the same against the port's own MultiheadAttention: atol 1e-6;
   * the wrapper on CPU tensors returns the plain version without a launch
     and refuses bad dtypes and shapes;
+  * the kernel's layout as the wrapper derives it (`block_plan`) and a CPU
+    model of its float32 arithmetic (3xTF32) inside the stated tolerance;
   * cone_tpu_torch.tools.bench_attn on the CPU: structure, no device time,
     and the analytic bound of the serving shape.
 """
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from cone_tpu.models.transformer import MultiheadAttention as JMultiheadAttention
 from cone_tpu_torch.models.transformer import MultiheadAttention
 from cone_tpu_torch.ops import attention as at
+from cone_tpu_torch.ops import tf32
 from cone_tpu_torch.tools import bench_attn
 from cone_tpu_torch.utils.device import card_peaks
 
@@ -151,9 +154,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, exc):
 
 
 def test_shared_memory_need_of_the_serving_shape():
-    # K_h and V_h as fp32 rows of hd + 1 floats, plus 16 query rows in flight
-    assert at.smem_bytes(110, 32) == 4 * (2 * 110 * 33 + 16 * 32) == 31088
-    assert at.smem_bytes(256, 128) > at.MAX_SMEM_BYTES  # refused before any launch
+    # Q, K and V of a head group as 112 rows each (seven 16-key tiles, zero
+    # past key 110), rows of 256 + 16 bytes in their own type: 4 heads in
+    # bfloat16, 2 in float32
+    for itemsize, heads in ((2, 4), (4, 2)):
+        plan = at.block_plan(110, 110, 32, 8, itemsize)
+        assert plan["heads_per_block"] == heads and plan["grid"] == (8 // heads, 1)
+        assert plan["key_tiles"] == 7
+        assert plan["smem_bytes"] == 3 * 112 * 272 == 91392
+        assert 2 * (plan["smem_bytes"] + 1024) <= 233472      # two blocks share an SM
+    # float32 keys of width 128 beyond 128 keys: refused before any launch
+    assert at.smem_bytes(8, 129, 128, 4, 4) > at.MAX_SMEM_BYTES
+    assert at.smem_bytes(8, 128, 128, 4, 4) <= at.MAX_SMEM_BYTES
+    assert at.smem_bytes(8, 256, 128, 4, 2) <= at.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("lq,lk,hd,h,itemsize,heads,grid,tiles,smem", [
+    (5, 110, 32, 8, 2, 4, (2, 1), 7, (16 + 224) * 272),        # the decoder's cross-attention
+    (5, 113, 32, 8, 2, 4, (2, 1), 8, (16 + 256) * 272),
+    (300, 256, 64, 4, 2, 2, (2, 3), 16, (128 + 512) * 272),    # three query chunks
+    (17, 15, 16, 8, 2, 8, (1, 1), 4, (32 + 128) * 272),        # width 16: eight heads a block
+    (17, 65, 16, 8, 4, 4, (2, 1), 7, (32 + 224) * 272),
+    (9, 100, 128, 4, 4, 1, (4, 1), 7, (16 + 224) * 528),       # one head wider than 256 bytes
+    (12, 12, 16, 3, 2, 3, (1, 1), 4, (16 + 128) * 112),        # fewer heads than would fit
+])
+def test_block_plan(lq, lk, hd, h, itemsize, heads, grid, tiles, smem):
+    plan = at.block_plan(lq, lk, hd, h, itemsize)
+    assert plan == dict(heads_per_block=heads, grid=grid, key_tiles=tiles, smem_bytes=smem)
+    assert plan["grid"][0] * heads >= h and smem % 16 == 0   # rows stay 16-byte aligned
+
+
+@pytest.mark.parametrize("case", ["serving", "fully_masked_row", "large_logits"])
+def test_3xtf32_attention_stays_inside_the_float32_tolerance(case):
+    # the float32 kernel's arithmetic (both products as three TF32 products,
+    # scale applied to the fp32 logits) at the serving shape's L and head
+    # width, against the plain version in float64
+    q, k, v, mask = bench_attn.make_inputs(6, 110, 110, 256, torch.float32, "cpu", seed=5)
+    if case == "fully_masked_row":
+        mask[1] = True
+    elif case == "large_logits":
+        q, k = 3 * q, 3 * k       # logits of std 9: a sharp softmax
+    h, hd = 8, 32
+
+    def split(x):
+        return x.reshape(6, 110, h, hd).transpose(1, 2)
+
+    logits = tf32.matmul_3xtf32(split(q), split(k).transpose(-1, -2)) * hd ** -0.5
+    logits = logits.masked_fill(mask[:, None, None, :], at.NEG_INF)
+    got = tf32.matmul_3xtf32(torch.softmax(logits, -1), split(v)).transpose(1, 2).reshape(6, 110, 256)
+    want = _plain_f64(q, k, v, mask, h)
+
+    err = float((got.double() - want).abs().max())
+    assert err <= bench_attn.F32_REL_TOL * max(1.0, float(want.abs().max())) / 4
+    # one TF32 product alone would not do
+    one = (tf32.round_tf32(split(q)) @ tf32.round_tf32(split(k)).transpose(-1, -2)) * hd ** -0.5
+    one = torch.softmax(one.masked_fill(mask[:, None, None, :], at.NEG_INF), -1)
+    one = (tf32.round_tf32(one) @ tf32.round_tf32(split(v))).transpose(1, 2).reshape(6, 110, 256)
+    assert float((one.double() - want).abs().max()) > bench_attn.F32_REL_TOL * max(
+        1.0, float(want.abs().max()))
+
+
+def _plain_f64(q, k, v, mask, h):
+    b, l, d = q.shape
+
+    def split(x):
+        return x.double().reshape(b, x.shape[1], h, d // h).transpose(1, 2)
+
+    logits = (split(q) * (d // h) ** -0.5) @ split(k).transpose(-1, -2)
+    logits = logits.masked_fill(mask[:, None, None, :], at.NEG_INF)
+    return (torch.softmax(logits, -1) @ split(v)).transpose(1, 2).reshape(b, l, d)
 
 
 def test_bench_attn_on_the_cpu_reports_no_device_time(capsys):

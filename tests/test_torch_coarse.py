@@ -12,6 +12,7 @@ from jax.experimental import pallas as pl
 
 import cone_tpu.ops.pallas_coarse as pc
 from cone_tpu_torch.ops import coarse as co
+from cone_tpu_torch.ops import tf32
 from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
 
 
@@ -121,3 +122,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
         feats, cls, ctx = (x.to("meta") for x in (feats, cls, ctx))
     with pytest.raises(err):
         co.coarse_segment_max(feats, cls, ctx, stride)
+
+
+@pytest.mark.parametrize("label,l_pad,stride,b,spb,grid", [
+    ("ego4d", 2304, 45, 1, 1, (52, 1)),              # 52 segments do not fill 132 SMs
+    ("ego4d-video-batch", 2304, 45, 4, 2, (26, 4)),  # 208 segments: runs of 2
+    ("mad", 36864, 62, 1, 5, (119, 1)),              # 595 segments: runs of 5, one block an SM
+    ("ctx<stride", 90, 45, 2, 1, (2, 2)),
+    ("one-segment", 40, 45, 1, 1, (1, 1)),
+    ("long-batch", 36864, 62, 3, 14, (43, 3)),
+])
+def test_launch_plan(label, l_pad, stride, b, spb, grid):
+    n_seg = -(-l_pad // stride)
+    plan = co.plan(n_seg, b)
+    assert plan == dict(segs_per_block=spb, grid=grid)
+    assert grid[0] * spb >= n_seg > (grid[0] - 1) * spb    # every segment has one owner
+    assert grid[0] * grid[1] <= 132                        # the whole grid is resident at once
+
+
+def test_launch_plan_follows_the_card():
+    # a card with fewer SMs gets longer runs; one segment per block is the floor,
+    # the whole video the ceiling
+    assert co.plan(595, 1, n_sm=66)["segs_per_block"] == 10
+    assert co.plan(595, 1, n_sm=1000)["segs_per_block"] == 1
+    assert co.plan(3, 500, n_sm=132) == dict(segs_per_block=3, grid=(1, 500))
+
+
+@pytest.mark.parametrize("label,q,d,l_pad,stride,spb,ntw,warps", [
+    # Ego4D: 3 frame tiles x 4 query tiles = 12 items, a warp each
+    ("ego4d", 32, 256, 2304, 45, 1, 1, 16),
+    ("ego4d-video-batch", 32, 256, 2304, 45, 2, 2, 16),
+    # MAD: 20 frame tiles a block, a warp carries all 32 queries of its frames
+    ("mad", 32, 512, 36864, 62, 5, 4, 16),
+    ("ctx<stride", 8, 64, 90, 45, 1, 1, 16),
+    ("q5", 5, 16, 90, 45, 2, 1, 16),
+    ("q40", 40, 64, 520, 45, 4, 8, 8),            # five query tiles: the instance of 8
+    ("q40-short-run", 40, 64, 520, 45, 1, 1, 16),  # 3 x 5 items on 16 warps
+    ("q100", 100, 64, 520, 62, 3, 16, 8),
+    ("q128-stride7", 128, 100, 4000, 7, 40, 16, 8),
+])
+def test_kernel_layout(label, q, d, l_pad, stride, spb, ntw, warps):
+    lay = co.layout(q, d, l_pad, stride, spb)
+    assert (lay["ntw"], lay["warps"]) == (ntw, warps)
+    n_qt, m_tiles = -(-q // 8), -(-min(spb * stride, l_pad) // 16)
+    groups = -(-n_qt // ntw)
+    assert groups * ntw >= n_qt                            # every query tile has an item
+    if ntw < n_qt:                                         # split by queries only while
+        assert m_tiles * groups <= warps                   # every item gets its own warp
+    qpad, cls_ld = groups * ntw * 8, -(-d // 32) * 32 + 4
+    assert lay["smem_bytes"] == 4 * (qpad * cls_ld + spb * qpad + warps * 3 * 16 * 36)
+    assert lay["smem_bytes"] <= co.MAX_SMEM_BYTES
+
+
+def test_kernel_layout_of_what_does_not_fit():
+    # 128 queries of 516 floats exceed a block's shared memory: the wrapper raises
+    assert co.layout(128, 512, 200, 45, 1)["smem_bytes"] > co.MAX_SMEM_BYTES
+    # 64 queries at MAD width fit, on 8 warps: with 16 the rings would not
+    lay = co.layout(64, 512, 200, 45, 1)
+    assert lay["smem_bytes"] <= co.MAX_SMEM_BYTES and (lay["ntw"], lay["warps"]) == (8, 8)
+    assert co.layout(64, 256, 200, 45, 1)["warps"] == 16
+
+
+@pytest.mark.parametrize("label,l,d,scale", [("mad", 4096, 512, 1.0), ("ego4d", 2304, 256, 1.0),
+                                             ("unnormalized", 512, 512, 30.0)])
+def test_3xtf32_product_stays_inside_the_kernel_tolerance(rng, label, l, d, scale):
+    # the kernel's arithmetic (three TF32 products per dot product) on unit
+    # vectors at the coarse stage's widths, Q 32, against float64
+    feats = rng.normal(size=(l, d))
+    feats[: l // 8] += 4 * rng.normal(size=d)       # a planted direction: scores near 1
+    feats = (scale * feats / np.linalg.norm(feats, axis=1, keepdims=True)).astype(np.float32)
+    cls = rng.normal(size=(32, d))
+    cls[:4] += feats[0] * 40 / scale
+    cls = (cls / np.linalg.norm(cls, axis=1, keepdims=True)).astype(np.float32)
+    want = cls.astype(np.float64) @ feats.astype(np.float64).T
+    got = tf32.matmul_3xtf32(torch.from_numpy(cls), torch.from_numpy(feats).T).numpy()
+    tol = 1e-5 * max(1.0, np.abs(want).max())
+    assert np.abs(want).max() > 0.5 * scale      # the planted scores are large
+    assert np.abs(got - want).max() <= tol / 4
+    # a single TF32 product is outside it: the split is what keeps fp32 accuracy
+    one = (tf32.round_tf32(torch.from_numpy(cls)).double()
+           @ tf32.round_tf32(torch.from_numpy(feats)).double().T).numpy()
+    assert np.abs(one - want).max() > tol
+
+
+def test_tf32_rounding_and_split():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -11, 0.0,
+                      3.14159265, -1e-30, 65504.0])
+    r = tf32.round_tf32(x)
+    assert r.tolist()[:5] == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -10, 0.0]
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()          # 10 mantissa bits
+    hi, lo = tf32.split_tf32(x)
+    assert ((hi + lo) - x).abs().max() <= 2.0 ** -21 * x.abs().max()
+    with pytest.raises(TypeError):
+        tf32.round_tf32(x.double())

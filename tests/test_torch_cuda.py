@@ -44,10 +44,14 @@ def _inputs(card, b, q, l_pad, d, seed=0):
 ])
 def test_coarse_kernel_matches_plain(card, ctx, q, d, stride):
     l_pad = max(ctx) + 2 * stride + 1  # not a multiple of the stride
+    _coarse_against_plain(card, ctx, q, d, stride, l_pad)
+
+
+def _coarse_against_plain(card, ctx, q, d, stride, l_pad, segs_per_block=None):
     feats, cls = _inputs(card, len(ctx), q, l_pad, d)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=card)
     before = co.coarse_segment_max.launches
-    got = co.coarse_segment_max(feats, cls, ctx_t, stride)
+    got = co.coarse_segment_max(feats, cls, ctx_t, stride, segs_per_block)
     torch.cuda.synchronize()
     assert co.coarse_segment_max.launches == before + 1
     want = co.coarse_segment_max_plain(feats, cls, ctx_t, stride)
@@ -59,15 +63,44 @@ def test_coarse_kernel_matches_plain(card, ctx, q, d, stride):
     assert (got[~valid] <= co.NEG_INF / 2).all()
 
 
-@pytest.mark.parametrize("bad", ["d_not_mult_4", "too_many_queries", "not_contiguous"])
+@pytest.mark.parametrize("ctx,q,d,stride,l_pad,spb", [
+    ([2243], 32, 256, 45, 2304, None),     # Ego4D: one segment per block
+    ([36000], 32, 512, 62, 36864, None),   # MAD: the plan's runs of segments
+    ([700], 32, 64, 45, 720, 3),           # segments straddle the 16-frame tiles of a run
+    ([8 * 45 - 20], 32, 64, 45, 720, 4),   # a block's run ends at ctx_l, mid-segment
+    ([8 * 45], 32, 64, 45, 720, 4),        # ... and exactly at its last frame
+    ([700], 32, 64, 45, 720, 5),           # n_seg 16 is no multiple of the run
+    ([700], 32, 64, 45, 720, 16),          # the whole video in one block
+    ([500, 90, 1], 5, 64, 45, 520, 2),     # Q 5: one ragged query tile
+    ([500], 40, 64, 45, 520, 4),           # Q 40, a long run: the instance of eight query tiles
+    ([500], 40, 64, 45, 520, 1),           # ... a short one: its queries spread over the warps
+    ([500], 100, 64, 62, 520, 3),          # Q 100: sixteen per item, the last tiles ragged
+    ([300], 128, 128, 62, 330, 2),         # Q 128: the limit
+    ([1500, 707, 62], 32, 512, 62, 1600, 4),   # B 3 with unequal ctx_l at D 512
+    ([300], 16, 64, 7, 330, 9),            # a stride below 16: several segments per tile
+    ([100], 8, 64, 1, 120, 50),            # stride 1
+    ([300], 32, 100, 45, 330, 2),          # D no multiple of the 32-column tile
+    ([300], 8, 16, 45, 330, 1),            # D below one tile
+    ([0, 300], 8, 64, 45, 330, 2),         # a video with no valid frame
+])
+def test_coarse_kernel_seams(card, ctx, q, d, stride, l_pad, spb):
+    _coarse_against_plain(card, ctx, q, d, stride, l_pad, spb)
+
+
+@pytest.mark.parametrize("bad", ["d_not_mult_4", "too_many_queries", "not_contiguous",
+                                 "run_too_long", "run_zero", "smem"])
 def test_coarse_kernel_raises_instead_of_falling_back(card, bad):
     q, d = (129, 64) if bad == "too_many_queries" else (8, 62 if bad == "d_not_mult_4" else 64)
+    if bad == "smem":
+        q, d = 128, 512      # 128 x 516 floats of queries alone exceed a block's 227 KB
     feats, cls = _inputs(card, 1, q, 200, d)
     if bad == "not_contiguous":
         feats = feats.transpose(1, 2).contiguous().transpose(1, 2)
+    spb = {"run_too_long": 6, "run_zero": 0}.get(bad)   # n_seg is 5
     before = co.coarse_segment_max.launches
     with pytest.raises(ValueError):
-        co.coarse_segment_max(feats, cls, torch.tensor([150], dtype=torch.int32, device=card), 45)
+        co.coarse_segment_max(feats, cls, torch.tensor([150], dtype=torch.int32, device=card),
+                              45, spb)
     assert co.coarse_segment_max.launches == before
 
 
@@ -80,7 +113,9 @@ def test_coarse_kernel_raises_instead_of_falling_back(card, bad):
     (3, 110, 110, 128, 8),     # head width 16, B a multiple of nothing
     (3, 37, 70, 256, 4),       # head width 64
     (2, 1, 1, 64, 2),          # L 1
-    (2, 9, 200, 512, 4),       # head width 128, seven key groups
+    (2, 9, 128, 512, 4),       # head width 128, eight key tiles: float32's limit there
+    (2, 300, 256, 256, 8),     # three query chunks of 128 rows, the key limit
+    (2, 130, 40, 48, 3),       # head width 48: a 32-column step and a 16-column half
 ])
 def test_attention_kernel_matches_plain(card, dtype, b, lq, lk, d, h):
     q, k, v, mask = bench_attn.make_inputs(b, lq, lk, d, dtype, card, seed=1)
@@ -88,6 +123,26 @@ def test_attention_kernel_matches_plain(card, dtype, b, lq, lk, d, h):
     err, tol, got = bench_attn.compare(q, k, v, mask, h)
     assert at.masked_attention.launches == before + 1
     assert got.shape == (b, lq, d) and got.dtype == dtype and err <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("l", [15, 16, 17, 111, 112, 113, 256])
+def test_attention_kernel_tile_seams(card, dtype, hd, l):
+    # Lq and Lk on either side of the 16-row tiles, at every head width; two
+    # heads, so that head groups of one and of several heads both occur
+    if at.smem_bytes(l, l, hd, 2, 4 if dtype == torch.float32 else 2) > at.MAX_SMEM_BYTES:
+        with pytest.raises(ValueError):   # float32, more than 128 keys of width 128
+            at.masked_attention(*bench_attn.make_inputs(2, l, l, 2 * hd, dtype, card), 2)
+        return
+    for lq, lk in ((l, l), (l, 110), (110, l)):
+        q, k, v, mask = bench_attn.make_inputs(3, lq, lk, 2 * hd, dtype, card, seed=l,
+                                               min_len=1)
+        mask[2] = True    # a fully masked window among the others
+        err, tol, got = bench_attn.compare(q, k, v, mask, 2)
+        assert got.shape == (3, lq, 2 * hd) and err <= tol
+        want = v[2].float().mean(0).expand(lq, 2 * hd)
+        torch.testing.assert_close(got[2].float(), want, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -108,16 +163,19 @@ def test_attention_kernel_mask_edges(card, dtype, case):
         torch.testing.assert_close(got[1].float(), want, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("bad", ["keys", "head_dim", "smem", "not_contiguous",
-                                 "mixed_dtype", "float16", "heads", "mask_dtype"])
+@pytest.mark.parametrize("bad", ["keys", "head_dim", "head_dim_multiple", "smem",
+                                 "not_contiguous", "misaligned", "mixed_dtype", "float16",
+                                 "heads", "mask_dtype"])
 def test_attention_kernel_raises_instead_of_falling_back(card, bad):
     b, lq, lk, d, h, dtype = 2, 8, 8, 64, 4, torch.float32
     if bad == "keys":
         lk = at.MAX_KEYS + 1
     elif bad == "head_dim":
         d, h = 512, 2
+    elif bad == "head_dim_multiple":
+        d, h = 96, 4               # head width 24
     elif bad == "smem":
-        lk, d, h = 256, 512, 4     # 2 * 256 * 129 * 4 bytes > 227 KB
+        lk, d, h = 129, 512, 4     # 2 * 256 staged key rows of 528 bytes > 227 KB
     elif bad == "heads":
         h = 5
     elif bad == "float16":
@@ -126,6 +184,8 @@ def test_attention_kernel_raises_instead_of_falling_back(card, bad):
     q, k, v = (x.to(dtype) for x in (q, k, v))
     if bad == "not_contiguous":
         k = k.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "misaligned":
+        k = torch.cat([k.flatten(), k.new_zeros(1)])[1:].view(k.shape)   # 4 bytes off
     elif bad == "mixed_dtype":
         v = v.to(torch.bfloat16)
     elif bad == "mask_dtype":
