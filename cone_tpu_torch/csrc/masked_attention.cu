@@ -45,8 +45,12 @@
 //     the Q tile it has just consumed and writes it out in 16-byte pieces;
 //   * masked keys and keys past Lk sit at the finite -1e30 and get weight
 //     0; a window whose keys are all masked gives uniform weights over its
-//     Lk keys, as the plain masked_fill + softmax does (its logits are
-//     scaled to zero and only the keys past Lk stay out).
+//     Lk keys, as the plain masked_fill + softmax does (it is recognised
+//     once per block from the mask's bits, its logits are set equal and
+//     only the keys past Lk stay out);
+//   * what a block does once (staging without a division per piece, the
+//     mask gathered as eight ballot words) is kept lean: at 3.5 items a
+//     warp it was a seventh of the kernel.
 // KT, the 16-key tiles the registers hold (4, 7, 8, 16 for Lk <= 64, 112,
 // 128, 256), is the one template parameter beside the type: eight
 // instances.
@@ -68,6 +72,7 @@ constexpr int kMaxHeadDim = 128;
 constexpr int kQChunk = 128;    // query rows a block stages
 constexpr int kRowBytes = 256;  // columns of a head group, in bytes
 constexpr int kPadBytes = 16;
+constexpr int kMaskBytes = 32;    // the window's mask as bits, a word per warp
 constexpr int kMaxSmem = 232448;  // opt-in dynamic shared memory of a block
 constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
@@ -92,7 +97,7 @@ __host__ __device__ inline int key_tiles(int Lk) {
 __host__ __device__ inline size_t smem_bytes_of(int Lq, int Lk, int hd, int H, int item) {
   const int q_rows = 16 * ceil_div(Lq < kQChunk ? Lq : kQChunk, 16);
   const size_t row = (size_t)heads_per_block(hd, H, item) * hd * item + kPadBytes;
-  return (size_t)(q_rows + 2 * 16 * key_tiles(Lk)) * row;
+  return (size_t)(q_rows + 2 * 16 * key_tiles(Lk)) * row + kMaskBytes;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -208,9 +213,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // In place: s becomes the normalised softmax weights of rows g and g+8.
 // Bit (2n + e) of `ign` is set where key 8n + 2t + e is masked or lies past
 // Lk: it sits at the finite -1e30 and gets weight 0 as long as one key of
-// the row is live (the caller turns a fully masked window into equal logits
-// first). The logits are taken to base 2 (scale2 = scale * log2 e), so the
-// exponential is one ex2.approx, 2 ulp: far inside either type's tolerance.
+// the row is live (the caller hands a fully masked window equal logits).
+// The scale goes into the exponent's one fused multiply-add, to base 2
+// (scale2 = scale * log2 e), so the exponential is one ex2.approx, 2 ulp:
+// far inside either type's tolerance.
 template <int KT>
 __device__ __forceinline__ void softmax_rows(float (&s)[2 * KT][4], float scale2,
                                              uint64_t ign) {
@@ -219,9 +225,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[2 * KT][4], float scale2
   for (int n = 0; n < 2 * KT; ++n) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const bool masked = (ign >> (2 * n + e)) & 1;
-      s[n][e] = masked ? kNegInf : s[n][e] * scale2;
-      s[n][e + 2] = masked ? kNegInf : s[n][e + 2] * scale2;
+      if ((ign >> (2 * n + e)) & 1) s[n][e] = s[n][e + 2] = kNegInf;
       m0 = fmaxf(m0, s[n][e]);
       m1 = fmaxf(m1, s[n][e + 2]);
     }
@@ -230,13 +234,15 @@ __device__ __forceinline__ void softmax_rows(float (&s)[2 * KT][4], float scale2
   m0 = fmaxf(m0, __shfl_xor_sync(kFull, m0, 2));
   m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, 1));
   m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, 2));
+  m0 *= scale2;
+  m1 *= scale2;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int n = 0; n < 2 * KT; ++n) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[n][e] = exp2_approx(s[n][e] - m0);
-      s[n][e + 2] = exp2_approx(s[n][e + 2] - m1);
+      s[n][e] = exp2_approx(fmaf(s[n][e], scale2, -m0));
+      s[n][e + 2] = exp2_approx(fmaf(s[n][e + 2], scale2, -m1));
       sum0 += s[n][e];
       sum1 += s[n][e + 2];
     }
@@ -331,7 +337,8 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.z * kQChunk;         // first query row of the block
   const int n_q = min(Lq - q0, kQChunk);
   const int q_rows = 16 * ceil_div(n_q, 16);
-  T* q_s = reinterpret_cast<T*>(smem_raw);     // (q_rows, ld)
+  uint32_t* mask_bits = reinterpret_cast<uint32_t*>(smem_raw);  // (kWarps,)
+  T* q_s = reinterpret_cast<T*>(smem_raw + kMaskBytes);         // (q_rows, ld)
   T* k_s = q_s + (size_t)q_rows * ld;          // (kKeyRows, ld)
   T* v_s = k_s + (size_t)kKeyRows * ld;        // (kKeyRows, ld)
 
@@ -350,58 +357,62 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // stage whole rows of the head group; rows past the real ones are zero
   const int ppr = nh * hd / kPiece;  // 16-byte pieces of a row
-  const int rows = q_rows + 2 * kKeyRows;
-  for (int i = tid; i < rows * ppr; i += kThreads) {
-    const int r = i / ppr;
-    const int c = (i - r * ppr) * kPiece;
-    T* dst = q_s + (size_t)r * ld + c;  // q_s, k_s, v_s are one array of rows
-    const T* src;
-    bool real;
-    if (r < q_rows) {
-      real = r < n_q;
-      src = q_b + (size_t)r * D + c;
-    } else if (r < q_rows + kKeyRows) {
-      real = r - q_rows < Lk;
-      src = k_b + (size_t)(r - q_rows) * D + c;
-    } else {
-      real = r - q_rows - kKeyRows < Lk;
-      src = v_b + (size_t)(r - q_rows - kKeyRows) * D + c;
+  // (row, piece) walk an array kThreads pieces at a time, without a
+  // division per piece
+  const int row_step = kThreads / ppr, piece_step = kThreads - row_step * ppr;
+  auto stage = [&](T* dst0, const T* src0, int n_rows, int n_real) {
+    for (int r = tid / ppr, piece = tid - r * ppr; r < n_rows;) {
+      T* dst = dst0 + (size_t)r * ld + piece * kPiece;
+      if (r < n_real)
+        cp_async16(dst, src0 + (size_t)r * D + piece * kPiece);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      r += row_step;
+      piece += piece_step;
+      if (piece >= ppr) {
+        piece -= ppr;
+        ++r;
+      }
     }
-    if (real)
-      cp_async16(dst, src);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  }
+  };
+  stage(q_s, q_b, q_rows, n_q);
+  stage(k_s, k_b, kKeyRows, Lk);
+  stage(v_s, v_b, kKeyRows, Lk);
   cp_async_commit();
 
-  // this lane's keys while the rows land. Bit (2n + e): key 8n + 2t + e is
-  // masked or past Lk. A window whose keys are all masked attends uniformly:
-  // its real keys are cleared here and its logits scaled to zero.
+  // the window's mask as bits while the rows land: thread j votes for key j
+  // (masked, or past Lk), a warp's ballot is one word
+  static_assert(kThreads == kMaxKeys && kWarps * 4 == kMaskBytes, "one thread per key");
+  {
+    const bool masked = tid >= Lk || (mask != nullptr && mask[(size_t)b * Lk + tid] != 0);
+    const uint32_t word = __ballot_sync(kFull, masked);
+    if (lane == 0) mask_bits[warp] = word;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this lane's keys: bit (2n + e) of ign says key 8n + 2t + e is masked or
+  // past Lk. A window whose keys are all masked attends uniformly: its real
+  // keys are cleared and its logits scaled to zero.
   uint64_t ign = 0;
-  bool live = false;  // a real key of this lane is not masked
-  const unsigned char* m_b = mask == nullptr ? nullptr : mask + (size_t)b * Lk;
+  uint32_t all = ~0u;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) all &= mask_bits[w];
 #pragma unroll
   for (int n = 0; n < 2 * KT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = 8 * n + 2 * t + e;
-      const bool masked = key >= Lk || (m_b != nullptr && m_b[key] != 0);
-      if (masked) ign |= 1ull << (2 * n + e);
-      live = live || !masked;
-    }
+    const int key = 8 * n + 2 * t;  // keys key, key + 1 lie in one word
+    ign |= (uint64_t)((mask_bits[key >> 5] >> (key & 31)) & 3u) << (2 * n);
   }
-  float scale2 = scale * 1.4426950408889634f;  // to base 2
-  if (!__any_sync(kFull, live)) {
+  const float scale2 = scale * 1.4426950408889634f;  // to base 2
+  const bool all_masked = all == ~0u;
+  if (all_masked) {
 #pragma unroll
     for (int n = 0; n < 2 * KT; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         if (8 * n + 2 * t + e < Lk) ign &= ~(1ull << (2 * n + e));
     }
-    scale2 = 0.f;
   }
-  cp_async_wait_all();
-  __syncthreads();
 
   // a warp's item: 16 query rows of one head
   const int mtiles = q_rows / 16;
@@ -412,7 +423,14 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* q_t = q_s + (size_t)mt * 16 * ld + hh * hd;
     const T* v_h = v_s + hh * hd;
     float s[2 * KT][4];
-    logits<T, KT>(s, q_t, k_s + hh * hd, ld, hd, lane);
+    if (all_masked) {  // equal logits: uniform weights over the keys left in
+#pragma unroll
+      for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    } else {
+      logits<T, KT>(s, q_t, k_s + hh * hd, ld, hd, lane);
+    }
     softmax_rows<KT>(s, scale2, ign);
     uint32_t p[KT][4];  // bfloat16: the weights as A fragments, one per 16 keys
     if constexpr (sizeof(T) == 2) {

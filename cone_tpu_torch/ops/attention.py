@@ -37,7 +37,7 @@ MAX_HEAD_DIM = 128          # csrc/masked_attention.cu kMaxHeadDim
 HEAD_DIM_MULTIPLE = 16      # the k16 step of mma.sync.m16n8k16
 MAX_SMEM_BYTES = 232448     # opt-in dynamic shared memory per block (H100)
 _Q_CHUNK = 128              # csrc/masked_attention.cu kQChunk: query rows a block stages
-_ROW_BYTES, _PAD_BYTES = 256, 16    # kRowBytes, kPadBytes
+_ROW_BYTES, _PAD_BYTES, _MASK_BYTES = 256, 16, 32    # kRowBytes, kPadBytes, kMaskBytes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,14 +48,14 @@ def block_plan(lq: int, lk: int, hd: int, nheads: int, itemsize: int) -> dict:
     bytes, query rows to a multiple of 16, key rows to the instance's
     16 * `key_tiles` (4, 7, 8 or 16 register tiles of 16 keys for Lk <= 64,
     112, 128, 256; rows past Lk are zero; 7 is there for the fine stage's
-    110 tokens). Returns heads_per_block, the grid per window (head groups,
+    110 tokens); 32 bytes hold the window's mask as bits. Returns heads_per_block, the grid per window (head groups,
     query chunks), `key_tiles` and `smem_bytes`."""
     hb = min(max(_ROW_BYTES // (hd * itemsize), 1), nheads)
     q_rows = 16 * -(-min(lq, _Q_CHUNK) // 16)
     kt = 4 if lk <= 64 else 7 if lk <= 112 else 8 if lk <= 128 else 16
     row = hb * hd * itemsize + _PAD_BYTES
     return dict(heads_per_block=hb, grid=(-(-nheads // hb), -(-lq // _Q_CHUNK)),
-                key_tiles=kt, smem_bytes=(q_rows + 32 * kt) * row)
+                key_tiles=kt, smem_bytes=(q_rows + 32 * kt) * row + _MASK_BYTES)
 
 
 def smem_bytes(lq: int, lk: int, hd: int, nheads: int, itemsize: int) -> int:

@@ -156,12 +156,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, exc):
 def test_shared_memory_need_of_the_serving_shape():
     # Q, K and V of a head group as 112 rows each (seven 16-key tiles, zero
     # past key 110), rows of 256 + 16 bytes in their own type: 4 heads in
-    # bfloat16, 2 in float32
+    # bfloat16, 2 in float32; 32 bytes more for the mask's bits
     for itemsize, heads in ((2, 4), (4, 2)):
         plan = at.block_plan(110, 110, 32, 8, itemsize)
         assert plan["heads_per_block"] == heads and plan["grid"] == (8 // heads, 1)
         assert plan["key_tiles"] == 7
-        assert plan["smem_bytes"] == 3 * 112 * 272 == 91392
+        assert plan["smem_bytes"] == 3 * 112 * 272 + 32 == 91424
         assert 2 * (plan["smem_bytes"] + 1024) <= 233472      # two blocks share an SM
     # float32 keys of width 128 beyond 128 keys: refused before any launch
     assert at.smem_bytes(8, 129, 128, 4, 4) > at.MAX_SMEM_BYTES
@@ -180,7 +180,9 @@ def test_shared_memory_need_of_the_serving_shape():
 ])
 def test_block_plan(lq, lk, hd, h, itemsize, heads, grid, tiles, smem):
     plan = at.block_plan(lq, lk, hd, h, itemsize)
-    assert plan == dict(heads_per_block=heads, grid=grid, key_tiles=tiles, smem_bytes=smem)
+    # rows of the head group's bytes + 16, and 32 bytes of mask bits in front
+    assert plan == dict(heads_per_block=heads, grid=grid, key_tiles=tiles,
+                        smem_bytes=smem + 32)
     assert plan["grid"][0] * heads >= h and smem % 16 == 0   # rows stay 16-byte aligned
 
 
