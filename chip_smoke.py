@@ -26,7 +26,13 @@ Phases, each of which raises (exit code != 0) on failure:
      HTTP, answers held against direct calls, warm latencies;
   6. the `infer --fused` CLI on a synthetic workdir written to a temporary
      directory, held against the main-path run on the same data;
-  7. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+  7. training: the reference's golden 4-step trajectory on the card within
+     its limits, then `train` at the Ego4D preset's full width, bsz 32, 3
+     epochs with one eval epoch through the coarse kernel: finite, falling
+     losses, one kernel launch per eval dispatch, the best checkpoint
+     answering as the module in memory; step times and the profiled first
+     epoch's device busy share;
+  8. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -468,6 +474,133 @@ def infer_phase(model, cfg, ds, ranklists, device="cuda"):
           f"launches, {time.time() - t0:.1f} s", flush=True)
 
 
+def training_phase(card, device="cuda"):
+    """Training on the card: the reference's golden 4-step trajectory
+    (tests/golden/train_trajectory.npz) within its limits, then `train` at
+    the Ego4D preset's full width, bsz 32, on a planted-signal synthetic set
+    of 8 videos x 32 queries (8 steps an epoch): 3 epochs, the adapter on
+    from the second (both step variants), the first epoch profiled, one
+    eval epoch through the coarse kernel. Checks: finite losses that fall,
+    one coarse kernel launch per eval dispatch, the `best` checkpoint
+    answering as the trained module in memory, the module back in train
+    mode. `device` is there to rehearse the phase on the CPU; main() runs it
+    on the card. Returns (measurements, coarse launches)."""
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import ego4d_config
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cone_tpu_torch.eval.pipeline import InferencePipeline
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.tools import golden_train
+    from cone_tpu_torch.train.checkpoint import load_model
+    from cone_tpu_torch.train.loop import train
+
+    t0 = time.time()
+    worst = golden_train.check(device=device)
+    print(f"golden train_trajectory.npz on {device}: 4 steps, worst loss err "
+          f"{worst['loss_overall']:.2e} (< {golden_train.LIMITS['loss_overall']} rel), grad norm "
+          f"{worst['grad_norm']:.2e} (< {golden_train.LIMITS['grad_norm']} rel), terms "
+          f"{worst['terms']:.2e} (< {golden_train.LIMITS['terms']}), weights "
+          f"{worst['weights']:.2e} (< {golden_train.LIMITS['weights']} abs, "
+          f"{worst['worst_weight']}), {time.time() - t0:.1f} s", flush=True)
+
+    cfg = ego4d_config()
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, dset_name="synthetic"),
+        train=dataclasses.replace(cfg.train, bsz=32, n_epoch=3, start_epoch_for_adapter=1,
+                                  eval_epoch_interval=3),
+        eval=dataclasses.replace(cfg.eval, use_pallas_coarse=True))
+    n_videos, qpv = 8, 32
+    ds = make_synthetic_dataset(cfg.data, n_videos=n_videos, queries_per_video=qpv,
+                                ctx_l_range=(1500, 2305), dim=cfg.model.v_appear_feat_dim,
+                                signal=3.0, seed=1)
+    qc = cfg.eval.query_chunk
+    dispatches = n_videos * -(-qpv // qc)
+    with tempfile.TemporaryDirectory() as workdir:
+        co.coarse_segment_max.launches = 0
+        t0 = time.time()
+        model, history = train(cfg, ds, ds, workdir, profile=True, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        train_s = time.time() - t0
+        launches = co.coarse_segment_max.launches
+        check(model.training, "the trained module is not in train mode after the eval epoch")
+        check(len(history) == 3 and all(len(h["step_times"]) == 8 for h in history),
+              f"history: {[(h['epoch'], len(h['step_times'])) for h in history]}")
+        for h in history:
+            bad = {k: v for k, v in h.items() if k.startswith(("loss", "eval_loss", "grad_norm"))
+                   and not np.isfinite(v)}
+            check(not bad, f"epoch {h['epoch']}: non-finite {bad}")
+        # the adapter term joins the total from epoch 2 (start_epoch_for_adapter
+        # 1): the total without it must fall from the first epoch to the last
+        coef = cfg.loss.adapter_loss_coef
+        rest = [h["loss_overall"] - coef * h.get("loss_adapter", 0.0) for h in history]
+        check(rest[-1] < rest[0], f"loss without the adapter term did not fall: {rest}")
+        want = dispatches if device == "cuda" else 0  # the CPU runs the plain version
+        check(launches == want,
+              f"eval epoch launched coarse_segment_max {launches} times, want {want}")
+        check(history[2]["eval_loss_overall"] > 0 and "eval_seconds" in history[2],
+              "the eval epoch logged no eval losses")
+
+        # the best checkpoint answers as the module in memory
+        check(os.path.exists(os.path.join(workdir, "model_best.ckpt")),
+              "no best checkpoint: the eval's stop score was 0")
+        loaded, epoch = load_model(workdir, "best", device=device)
+        check(epoch == 2, f"best checkpoint from epoch {epoch}, want 2")
+        co.coarse_segment_max.launches = 0
+        subs_m, rank_m = InferencePipeline(model, ds, cfg, device=device).run(
+            host_postproc=False, fused=True)
+        subs_l, rank_l = InferencePipeline(loaded, ds, cfg, device=device).run(
+            host_postproc=False, fused=True)
+        extra_launches = co.coarse_segment_max.launches
+        check(rank_m == rank_l, "the best checkpoint ranks windows differently")
+        diff = 0.0
+        for name in subs_m:
+            rows_l = {r["query_id"]: r["predicted_times"] for r in subs_l[name]}
+            for r in subs_m[name]:
+                a, b = np.asarray(r["predicted_times"]), np.asarray(rows_l[r["query_id"]])
+                check(a.shape == b.shape, f"{name} {r['query_id']}: {a.shape} vs {b.shape}")
+                diff = max(diff, float(np.abs(a - b).max()) if a.size else 0.0)
+        check(diff <= 1e-6, f"best checkpoint's moments differ by {diff}")
+        model.train()
+        profile_files = os.listdir(os.path.join(workdir, "profile"))
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            evals = [r for r in map(json.loads, f) if r["kind"] == "eval"]
+        check(len(evals) == 1, f"{len(evals)} eval records, want 1")
+
+    steps = [t for h in history for t in h["step_times"]]
+    warm = [t for h in history[1:] for t in h["step_times"]]
+    med = float(np.median(warm))
+    meas = dict(first_step_ms=steps[0] * 1e3, warm_step_ms_median=med * 1e3,
+                steps_per_s=1.0 / med, eval_seconds=history[2]["eval_seconds"],
+                train_seconds=train_s, eval_dispatches=dispatches, loss_first=rest[0],
+                loss_last=rest[-1], stop_score=evals[0]["stop_score"],
+                loader_wait_ms=float(np.mean([h["dataloading_time"] for h in history[1:]])) * 1e3)
+    if "profile_device_s" in history[0]:
+        meas["profiled_epoch_device_s"] = history[0]["profile_device_s"]
+        meas["profiled_epoch_wall_s"] = history[0]["profile_wall_s"]
+        meas["profiled_epoch_busy_share"] = (history[0]["profile_device_s"]
+                                             / history[0]["profile_wall_s"])
+    print(f"train at Ego4D width (hidden {cfg.model.hidden_dim}, {cfg.model.nheads} heads, "
+          f"{cfg.model.enc_layers}+{cfg.model.dec_layers} layers, FFN "
+          f"{cfg.model.dim_feedforward}), bsz 32, {n_videos} videos x {qpv} queries: 3 epochs "
+          f"of 8 steps in {train_s:.2f} s; losses finite, loss without the adapter term "
+          f"{rest[0]:.4f} -> {rest[-1]:.4f}, adapter {history[1]['loss_adapter']:.4f} -> "
+          f"{history[2]['loss_adapter']:.4f}; eval epoch {history[2]['eval_seconds']:.3f} s with "
+          f"{launches} coarse_segment_max launches for {dispatches} dispatches; best "
+          f"checkpoint == module in memory (ranklists exact, moments within {diff:.1e}, "
+          f"{extra_launches} launches in that check); profile files {profile_files}",
+          flush=True)
+    print(f"train step times (host clock, each step ends in a device-to-host read of its "
+          f"metrics): first {steps[0] * 1e3:.2f} ms, warm median {med * 1e3:.2f} ms over the "
+          f"{len(warm)} steps after the first epoch -> {1.0 / med:.2f} steps/s (the step "
+          f"waited {meas['loader_wait_ms']:.2f} ms a batch for the loader); profiled first "
+          f"epoch busy share {meas.get('profiled_epoch_busy_share', float('nan')):.4f} "
+          f"[{card}]", flush=True)
+    return meas, launches
+
+
 def _self_device_us(evt):
     t = getattr(evt, "self_device_time_total", None)
     return evt.self_cuda_time_total if t is None else t
@@ -744,6 +877,8 @@ def main():
 
     serving = serving_phase(model, cfg, smi)
     infer_phase(model, cfg, ds, ranklists)
+    training, train_launches = training_phase(smi)
+    check(train_launches > 0, "the training phase launched no coarse_segment_max kernel")
 
     if args.profile:
         profile_breakdown(pipe, n_q)
@@ -752,7 +887,8 @@ def main():
     kernels = [dict(
         name="coarse_segment_max", route="cuda",
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
-        replaces="cone_tpu/ops/pallas_coarse.py:66", launches=launches,
+        replaces="cone_tpu/ops/pallas_coarse.py:66", launches=launches + train_launches,
+        launches_by_path={"inference": launches, "train_eval": train_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -768,7 +904,7 @@ def main():
         **{k: a32[k] for k in keys},
         bfloat16=dict(max_abs_err=attn_err["bfloat16"], **{k: a16[k] for k in keys})))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"serving_latency_ms": serving, "card": smi}))
+    print(json.dumps({"serving_latency_ms": serving, "training": training, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

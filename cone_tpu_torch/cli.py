@@ -1,6 +1,6 @@
-"""Command-line entry points: infer / eval / ensemble / serve.
+"""Command-line entry points: train / infer / eval / ensemble / serve.
 
-    python -m cone_tpu_torch <infer|eval|ensemble|serve> ... [--device cuda]
+    python -m cone_tpu_torch <train|infer|eval|ensemble|serve> ... [--device cuda]
 
 Counterparts of the reference's cone/inference.py CLI and its standalone
 evaluators, driven by the workdir's typed ConeConfig (config.json); any
@@ -13,12 +13,17 @@ feature directory holds tokens.cfs and cls.cfs) and a workdir with
 config.json and model_<tag>.ckpt, a reference-named torch checkpoint
 (train/checkpoint.py).
 
-Not ported yet: train, demo, reformat, extract-*, convert-store.
+`train` starts from a preset (ego4d, mad) or a --config file, writes its
+workdir (config.json, checkpoints, logs) and trains on one device.
+
+Not ported yet: demo, reformat, extract-*, convert-store; of train, the
+bfloat16 *_scratch presets, the 2D-TAN presets and multi-device training.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import os
 
@@ -63,6 +68,80 @@ def _open_dataset(cfg, data_path):
         _open_store(os.path.join(d.t_feat_dir, "cls.cfs")),
     )
     return GroundingDataset(data_path, appear, text, d, video_motion_store=motion)
+
+
+PRESETS = ("ego4d", "ego4d_scratch", "mad", "mad_scratch", "tan_ego4d", "tan_mad")
+
+
+def _load_cfg(args):
+    from cone_tpu_torch import config as C
+
+    if args.config:
+        # a user-supplied file: unknown keys are typos, fail loudly
+        cfg = C.ConeConfig.load(args.config, strict=True)
+    elif args.preset in ("ego4d", "mad"):
+        cfg = {"ego4d": C.ego4d_config, "mad": C.mad_config}[args.preset]()
+    elif args.preset.endswith("_scratch"):
+        raise NotImplementedError(
+            f"--preset {args.preset}: its bfloat16 compute_dtype is not ported (the "
+            "port's model runs float32 only); train with --preset "
+            f"{args.preset[:-len('_scratch')]}")
+    else:
+        raise NotImplementedError(
+            f"--preset {args.preset}: the 2D-TAN family is not ported yet "
+            "(ROADMAP Queue 1 item 10)")
+    return _apply_overrides(cfg, args.set)
+
+
+def cmd_train(args):
+    multi = [f"--{k}" for k in ("mesh", "distributed", "coordinator", "num_processes",
+                                "process_id") if getattr(args, k) not in (None, False)]
+    if multi:
+        raise NotImplementedError(
+            f"{' '.join(multi)}: multi-device and multi-host training are not ported "
+            "yet (ROADMAP Queue 1 item 11); the port trains on one device")
+    from cone_tpu_torch.train.loop import train
+
+    cfg = _load_cfg(args)
+    if args.debug:
+        cfg = _apply_overrides(cfg, ["train.debug=true"])
+    if args.train_path:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, train_path=args.train_path))
+    if args.eval_path:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, eval_path=args.eval_path))
+    if args.dump_config:
+        # the resolved config (preset, --config, --set, --debug, --*_path),
+        # written without training
+        os.makedirs(os.path.dirname(args.dump_config) or ".", exist_ok=True)
+        cfg.save(args.dump_config)
+        print(f"wrote resolved config to {args.dump_config}")
+        return
+    if args.synthetic:
+        from cone_tpu_torch.data import make_synthetic_dataset
+
+        dim = cfg.model.v_appear_feat_dim
+        if cfg.model.t_feat_dim != dim:
+            # synthetic text features share the appearance dim (the matching
+            # branch needs cls dim == appearance dim)
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model, t_feat_dim=dim))
+        train_ds = make_synthetic_dataset(cfg.data, n_videos=8, queries_per_video=8,
+                                          dim=dim, seed=0)
+        eval_ds = train_ds
+    else:
+        train_ds = _open_dataset(cfg, cfg.data.train_path)
+        eval_ds = _open_dataset(cfg, cfg.data.eval_path) if cfg.data.eval_path else None
+    if cfg.data.train_data_ratio != 1.0:
+        # a train-split-only downsample (the reference's --train_data_ratio,
+        # cone/config.py:29-32); --synthetic aliases the splits, so the eval
+        # split keeps its own full list
+        if eval_ds is train_ds:
+            eval_ds = copy.copy(train_ds)
+            eval_ds.examples = list(train_ds.examples)
+        n = int(len(train_ds.examples) * cfg.data.train_data_ratio)
+        train_ds.examples = train_ds.examples[:n]
+        print(f"train_data_ratio={cfg.data.train_data_ratio}: {n} train samples")
+    train(cfg, train_ds, eval_ds, args.workdir, profile=args.profile,
+          init_ckpt=args.init_ckpt, device=args.device, tensorboard=args.tensorboard)
 
 
 def _restore(args, cfg):
@@ -308,6 +387,38 @@ def _add_device(p):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cone_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a CONE model")
+    t.add_argument("--config", help="a config json (strict: unknown keys raise)")
+    t.add_argument("--preset", choices=PRESETS, default="ego4d",
+                   help="ego4d and mad train; the bfloat16 *_scratch presets and the"
+                        " 2D-TAN tan_* presets are not ported yet and raise")
+    t.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
+    t.add_argument("--workdir", required=True)
+    t.add_argument("--train_path")
+    t.add_argument("--eval_path")
+    t.add_argument("--synthetic", action="store_true",
+                   help="train on generated synthetic data (smoke runs)")
+    t.add_argument("--debug", action="store_true",
+                   help="smoke mode: 3 batches per epoch, one query chunk per eval"
+                        " (the reference's --debug, cone/config.py:27-28)")
+    t.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of the first epoch into <workdir>/profile")
+    t.add_argument("--init_ckpt",
+                   help="weights-only warm start from a reference-named torch file"
+                        " (e.g. tools/convert_ckpt.py --export output)")
+    t.add_argument("--dump_config", metavar="PATH",
+                   help="resolve preset/--config/--set, write the config json to PATH"
+                        " and exit (no training)")
+    t.add_argument("--tensorboard", action="store_true",
+                   help="also write a TensorBoard log (needs the tensorboard package)")
+    for flag in ("--coordinator", "--num_processes", "--process_id"):
+        t.add_argument(flag, help="multi-host training: not ported yet (raises)")
+    for flag in ("--mesh", "--distributed"):
+        t.add_argument(flag, action="store_true",
+                       help="multi-device training: not ported yet (raises)")
+    _add_device(t)
+    t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="evaluate a checkpoint")
     i.add_argument("--workdir", required=True)

@@ -5,5 +5,5 @@ from cone_tpu_torch.data.store import (
     TextFeatureStore,
     write_packed_store,
 )
-from cone_tpu_torch.data.dataset import GroundingDataset, QueryExample
+from cone_tpu_torch.data.dataset import GroundingDataset, QueryExample, TrainLoader
 from cone_tpu_torch.data.synthetic import make_synthetic_dataset

@@ -26,22 +26,23 @@ def span_cxw_to_xx(cxw_spans: torch.Tensor) -> torch.Tensor:
 
 
 def temporal_iou(spans1: torch.Tensor, spans2: torch.Tensor):
-    """Pairwise IoU of (N, 2) and (M, 2) xx spans -> (iou, union), (N, M)."""
-    areas1 = spans1[:, 1] - spans1[:, 0]
-    areas2 = spans2[:, 1] - spans2[:, 0]
-    left = torch.maximum(spans1[:, None, 0], spans2[None, :, 0])
-    right = torch.minimum(spans1[:, None, 1], spans2[None, :, 1])
+    """Pairwise IoU of (..., N, 2) and (..., M, 2) xx spans -> (iou, union),
+    (..., N, M); leading dims broadcast."""
+    areas1 = spans1[..., 1] - spans1[..., 0]
+    areas2 = spans2[..., 1] - spans2[..., 0]
+    left = torch.maximum(spans1[..., :, None, 0], spans2[..., None, :, 0])
+    right = torch.minimum(spans1[..., :, None, 1], spans2[..., None, :, 1])
     inter = (right - left).clamp(min=0)
-    union = areas1[:, None] + areas2[None, :] - inter
+    union = areas1[..., :, None] + areas2[..., None, :] - inter
     return inter / union, union
 
 
 def generalized_temporal_iou(spans1: torch.Tensor, spans2: torch.Tensor) -> torch.Tensor:
-    """Pairwise 1-D generalized IoU, (N, M)."""
+    """Pairwise 1-D generalized IoU, (..., N, M); leading dims broadcast."""
     spans1, spans2 = spans1.float(), spans2.float()
     iou, union = temporal_iou(spans1, spans2)
-    left = torch.minimum(spans1[:, None, 0], spans2[None, :, 0])
-    right = torch.maximum(spans1[:, None, 1], spans2[None, :, 1])
+    left = torch.minimum(spans1[..., :, None, 0], spans2[..., None, :, 0])
+    right = torch.maximum(spans1[..., :, None, 1], spans2[..., None, :, 1])
     enclosing = (right - left).clamp(min=0)
     return iou - (enclosing - union) / enclosing
 

@@ -1,16 +1,25 @@
-"""Workdir checkpoints, read side: the config snapshot and the weights.
+"""Workdir checkpoints: the config snapshot, the weights and the training
+state.
 
 A workdir holds `config.json` (the ConeConfig the model was trained with)
-and `model_<tag>.ckpt`, a torch file {"model": state_dict, "epoch": n}
-under the reference's parameter names (cone/model.py). That is the format
-of the reference's own checkpoints and of `tools/convert_ckpt.py --export`,
-which writes one from a JAX workdir. Saving, optimizer state and the
-early-stop counters come with training.
+and `model_<tag>.ckpt`, a torch file under the reference's parameter names
+(cone/model.py), in the reference's own checkpoint layout
+(cone/train.py:184-191):
+
+    {"model": state_dict, "optimizer": AdamW state, "lr_scheduler": ...,
+     "epoch": n, "extra": {"best_score": ..., "es_cnt": ...}}
+
+`tools/convert_ckpt.py --export` writes the same file from a JAX workdir.
+Tags follow the reference's three flavours (cone/train.py:181-223): `best`
+on a stop-score improvement, `latest` at every eval, periodic `e{NNNN}`.
+`extra` carries the early-stop counters, so a resumed run does not re-arm
+a fresh patience window.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Dict, Optional
 
 import torch
 
@@ -26,10 +35,14 @@ def checkpoint_path(workdir: str, tag: str) -> str:
     return os.path.join(workdir, f"model_{tag}.ckpt")
 
 
+def _read(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_model(workdir: str, tag: str = "best", device="cuda", cfg: ConeConfig = None):
     """(model, epoch): the configured family's model on `device` with the
-    weights of `model_<tag>.ckpt` (strict load). `cfg` defaults to the
-    workdir's config.json."""
+    weights of `model_<tag>.ckpt` (strict load), in eval mode. `cfg`
+    defaults to the workdir's config.json."""
     from cone_tpu_torch.train.loop import build_family
 
     cfg = load_config(workdir) if cfg is None else cfg
@@ -39,8 +52,59 @@ def load_model(workdir: str, tag: str = "best", device="cuda", cfg: ConeConfig =
             f"{path} not found: the port reads reference-named torch checkpoints; "
             "make one from a JAX workdir with tools/convert_ckpt.py --export "
             f"--workdir <workdir> --ckpt {tag} --out {path}")
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    raw = _read(path)
     model = build_family(cfg, seed=0, device=device)
     model.load_state_dict(load_reference_state_dict(raw))
     epoch = int(raw["epoch"]) if isinstance(raw, dict) and "epoch" in raw else 0
     return model.eval(), epoch
+
+
+def load_params(path: str, model: torch.nn.Module) -> None:
+    """Weights-only warm start: load a reference-named torch file (a
+    CheckpointManager file, a reference checkpoint, or the output of
+    tools/convert_ckpt.py --export) into `model` (strict). Optimizer and
+    epoch state in the file are ignored (the reference's --resume without
+    --resume_all, cone/config.py:63-66)."""
+    model.load_state_dict(load_reference_state_dict(_read(path)))
+
+
+class CheckpointManager:
+    """best / latest / periodic checkpoints of one workdir; writes
+    config.json at construction when given a config."""
+
+    def __init__(self, workdir: str, cfg: Optional[ConeConfig] = None):
+        self.workdir = workdir
+        os.makedirs(workdir, exist_ok=True)
+        if cfg is not None:
+            cfg.save(os.path.join(workdir, "config.json"))
+
+    def save(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None,
+             epoch: int = 0, extra: Optional[Dict[str, float]] = None) -> str:
+        """Write model_<tag>.ckpt atomically (a temporary file, then
+        os.replace)."""
+        state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                 "epoch": int(epoch),
+                 "extra": {k: float(v) for k, v in (extra or {}).items()}}
+        if optimizer is not None:
+            state["optimizer"] = optimizer.state_dict()
+        if scheduler is not None:
+            state["lr_scheduler"] = scheduler.state_dict()
+        path = checkpoint_path(self.workdir, tag)
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return path
+
+    def restore(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None):
+        """Load model_<tag>.ckpt into `model` (and `optimizer`, `scheduler`
+        where given and saved); returns (epoch, extra), extra {} for files
+        written without one."""
+        raw = _read(checkpoint_path(self.workdir, tag))
+        model.load_state_dict(load_reference_state_dict(raw))
+        if optimizer is not None and "optimizer" in raw:
+            optimizer.load_state_dict(raw["optimizer"])
+        if scheduler is not None and "lr_scheduler" in raw:
+            scheduler.load_state_dict(raw["lr_scheduler"])
+        return int(raw.get("epoch", 0)), {k: float(v) for k, v in raw.get("extra", {}).items()}
+
+    def exists(self, tag: str) -> bool:
+        return os.path.exists(checkpoint_path(self.workdir, tag))

@@ -1,17 +1,36 @@
-"""Model construction and evaluation (the read side of cone/train.py:
-eval every N epochs = inference + recall tables). The training loop itself
-is not ported yet.
+"""The training loop (cone/train.py:122-229): epochs of train steps,
+evaluation every `eval_epoch_interval` epochs through the inference
+pipeline, early stopping, best/latest/periodic checkpoints, per-stage
+timing meters and the jsonl metrics log. Also model construction and
+evaluation, which the inference entry points share.
+
+The stop score is the mean of the R@1 row, at IoU {0.3, 0.5} for Ego4D and
+{0.1, 0.3, 0.5} for MAD (cone/train.py:174-179).
+
+Single process on one device. Not ported yet, each raising where it would
+be asked for: the 2D-TAN family (ROADMAP Queue 1 item 10), data and tensor
+parallel training (item 11) and the multiscale loader (item 14).
+`train.rng_impl` chooses a JAX PRNG and has no counterpart here: dropout
+draws from torch's generator, seeded from train.seed.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
+import json
+import os
+import subprocess
+import time
+from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
 
 from cone_tpu_torch.config import ConeConfig
-from cone_tpu_torch.data.dataset import GroundingDataset
+from cone_tpu_torch.data.dataset import GroundingDataset, TrainLoader
+from cone_tpu_torch.data.prefetch import prefetch_iterator
 from cone_tpu_torch.eval.metrics import (
     display_recall_table,
     display_window_results,
@@ -21,7 +40,17 @@ from cone_tpu_torch.eval.metrics import (
 )
 from cone_tpu_torch.eval.pipeline import make_pipeline
 from cone_tpu_torch.models.cone import ConeModel
+from cone_tpu_torch.train.checkpoint import CheckpointManager, load_params
+from cone_tpu_torch.train.optim import make_optimizer
+from cone_tpu_torch.train.step import (
+    batch_to_device,
+    make_eval_loss_step,
+    make_train_step,
+    to_floats,
+)
 from cone_tpu_torch.utils.device import resolve_device
+from cone_tpu_torch.utils.io import AverageMeter, save_jsonl
+from cone_tpu_torch.utils.logging import MetricLogger
 
 
 def _stop_score(recall_table, dset_name: str) -> float:
@@ -49,14 +78,20 @@ def evaluate(model, eval_ds: GroundingDataset, cfg: ConeConfig,
              host_postproc: bool = True, fused: bool = False, device="cuda"):
     """Run inference + metrics on a flat-jsonl-style GT (the dataset's own
     examples). Returns a dict with the submissions and ranklists, the recall
-    table per modality, the window recall and their printable tables."""
+    table per modality, the window recall and their printable tables. The
+    model runs in eval mode and is handed back in the mode it came in."""
     if cfg.train.debug:
         # smoke mode: one query chunk end to end (the GT below comes from the
         # same truncated example list, so the tables stay consistent)
         eval_ds = copy.copy(eval_ds)
         eval_ds.examples = eval_ds.examples[: max(cfg.eval.query_chunk, 8)]
-    pipe = make_pipeline(model, eval_ds, cfg, device=device)
-    subs, ranklists = pipe.run(host_postproc=host_postproc and not fused, fused=fused)
+    device = resolve_device(device)
+    was_training = model.training
+    try:
+        pipe = make_pipeline(model, eval_ds, cfg, device=device)
+        subs, ranklists = pipe.run(host_postproc=host_postproc and not fused, fused=fused)
+    finally:
+        model.train(was_training)
     gt = [dict(query_id=e.query_id, timestamps=e.timestamps) for e in eval_ds.examples]
     if cfg.data.dset_name == "mad":
         thresholds, topk = [0.1, 0.3, 0.5], [1, 5, 10, 50, 100]
@@ -90,3 +125,205 @@ def evaluate(model, eval_ds: GroundingDataset, cfg: ConeConfig,
                else f"recall_{list(subs)[0]}")
     out["stop_score"] = _stop_score(out[primary], cfg.data.dset_name)
     return out
+
+
+def eval_criterion_losses(eval_loss_fn, eval_ds: GroundingDataset, cfg: ConeConfig,
+                          adapter_on: bool) -> dict:
+    """Criterion terms on the eval split: the windowed batches the train
+    step consumes, sampled with a fixed seed (seed, epoch 0) so every eval
+    scores the same windows and the curves compare across epochs (the
+    reference's eval-loss channel, cone/inference.py:30-36, 96-98)."""
+    bsz = min(cfg.train.bsz, len(eval_ds))
+    if bsz == 0:
+        return {}
+    batches = TrainLoader(eval_ds, bsz=bsz, seed=cfg.train.seed).epoch(0)
+    if cfg.train.debug:
+        batches = itertools.islice(batches, 2)
+    meters = defaultdict(AverageMeter)
+    for batch in batches:
+        for k, v in to_floats(eval_loss_fn(batch, adapter_on)).items():
+            meters[k].update(v)
+    return {k: m.avg for k, m in meters.items()}
+
+
+def _snapshot_code_version(workdir: str) -> None:
+    """Provenance: the commit and the uncommitted diff of the code that ran
+    (the reference zips its source tree per run, cone/config.py:205-211).
+    Best effort: nothing is written where git or the repository is missing."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        head = subprocess.run(["git", "rev-parse", "HEAD"], cwd=root,
+                              capture_output=True, text=True, timeout=10)
+        diff = subprocess.run(["git", "diff", "HEAD"], cwd=root,
+                              capture_output=True, text=True, timeout=10)
+    except (OSError, subprocess.SubprocessError):
+        return
+    if head.returncode != 0:
+        return
+    with open(os.path.join(workdir, "code_version.txt"), "w") as f:
+        f.write(head.stdout)
+        if diff.stdout:
+            f.write("\n--- uncommitted diff ---\n")
+            f.write(diff.stdout)
+
+
+def device_seconds(events) -> float:
+    """Device time summed over the CUDA events of a torch.profiler run's
+    key_averages(), without the spans of user annotations (such as the
+    optimizer's step range), which would count their kernels twice."""
+    total = 0.0
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            t = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if t is None else t
+    return total / 1e6
+
+
+def _check_supported(cfg: ConeConfig) -> None:
+    if cfg.model.model_family == "tan":
+        raise NotImplementedError(
+            "training the 2D-TAN family is not ported yet: ROADMAP Queue 1 item 10")
+    if cfg.train.multiscale:
+        raise NotImplementedError(
+            "train.multiscale (the multiscale loader) is not ported yet: "
+            "ROADMAP Queue 1 item 14")
+    if cfg.train.tp_devices > 1:
+        raise NotImplementedError(
+            "tensor parallel training (train.tp_devices > 1) is not ported yet: "
+            "ROADMAP Queue 1 item 11")
+
+
+def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[GroundingDataset],
+          workdir: str, profile: bool = False, init_ckpt: Optional[str] = None,
+          device="cuda", tensorboard: bool = False):
+    """Train a CONE model on one device; returns (model, history), one
+    record per epoch.
+
+    A workdir that holds a `latest` checkpoint resumes from it: weights,
+    optimizer and lr schedule, epoch and the early-stop counters.
+    init_ckpt: weights-only warm start from a reference-named torch file
+    (the reference's --resume without --resume_all, cone/config.py:63-66),
+    ignored when the run resumes. profile: trace the first epoch with
+    torch.profiler into <workdir>/profile. Dropout draws from torch's
+    generator seeded with train.seed for the run; the caller's generators
+    are left as they were."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    os.makedirs(workdir, exist_ok=True)
+    ckpt = CheckpointManager(workdir, cfg)
+    logger = MetricLogger(workdir, tensorboard=tensorboard)
+    _snapshot_code_version(workdir)
+    logger.log_hparams(json.loads(cfg.to_json()))
+
+    model = build_family(cfg, seed=cfg.train.seed, device=dev)
+    if init_ckpt and not ckpt.exists("latest"):
+        load_params(init_ckpt, model)
+        print(f"warm start: weights from {init_ckpt}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: {cfg.model.model_family}, {n_params:,} parameters on {dev}")
+    loader = TrainLoader(train_ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
+    if loader.steps_per_epoch() == 0:
+        raise ValueError(f"{len(train_ds)} training examples make no batch of {cfg.train.bsz}")
+    optimizer, scheduler = make_optimizer(model, cfg.train, loader.steps_per_epoch())
+    step_fn = make_train_step(model, optimizer, scheduler, cfg)
+    eval_loss_fn = (make_eval_loss_step(model, cfg)
+                    if eval_ds is not None and cfg.eval.criterion_losses else None)
+
+    start_epoch, best_score, es_cnt = 0, 0.0, 0
+    if ckpt.exists("latest"):
+        epoch, extra = ckpt.restore("latest", model, optimizer, scheduler)
+        start_epoch = epoch + 1
+        best_score = extra.get("best_score", 0.0)
+        es_cnt = int(extra.get("es_cnt", 0))
+        print(f"resumed from epoch {start_epoch}")
+
+    def save(tag, epoch):
+        ckpt.save(tag, model, optimizer, scheduler, epoch,
+                  extra={"best_score": best_score, "es_cnt": es_cnt})
+
+    history = []
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(cfg.train.seed)
+        for epoch in range(start_epoch, cfg.train.n_epoch):
+            meters = defaultdict(AverageMeter)
+            loss_meters = defaultdict(AverageMeter)
+            adapter_on = cfg.loss.adapter_loss and epoch >= cfg.train.start_epoch_for_adapter
+            batches = loader.epoch(epoch)
+            if cfg.train.debug:
+                batches = itertools.islice(batches, 3)
+            prof = None
+            if profile and epoch == start_epoch:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            t_epoch = t_load = time.time()
+            step_times = []
+            # batches are sampled and copied to the device on a background
+            # thread while the step before runs
+            for batch in prefetch_iterator(batch_to_device(b, dev) for b in batches):
+                meters["dataloading_time"].update(time.time() - t_load)
+                t0 = time.time()
+                metrics = to_floats(step_fn(batch, adapter_on))  # waits for the step
+                step_times.append(time.time() - t0)
+                meters["step_time"].update(step_times[-1])
+                for k, v in metrics.items():
+                    loss_meters[k].update(v)
+                t_load = time.time()
+            epoch_log = {"epoch": epoch + 1,
+                         **{k: m.avg for k, m in loss_meters.items()},
+                         **{k: m.avg for k, m in meters.items()}}
+            if prof is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                wall = time.time() - t_epoch
+                prof.stop()
+                os.makedirs(os.path.join(workdir, "profile"), exist_ok=True)
+                prof.export_chrome_trace(os.path.join(workdir, "profile", "trace.json"))
+                print(f"profiled epoch {epoch + 1}: wall {wall:.4f} s (profiler on), trace in "
+                      f"{os.path.join(workdir, 'profile')}")
+                if dev.type == "cuda":
+                    busy = device_seconds(prof.key_averages())
+                    epoch_log["profile_device_s"] = busy
+                    epoch_log["profile_wall_s"] = wall
+                    print(f"device time {busy:.4f} s, busy share {busy / wall:.4f}")
+            logger.log_train_epoch(epoch_log)
+            epoch_log["step_times"] = step_times
+            history.append(epoch_log)
+
+            if eval_ds is not None and (epoch + 1) % cfg.train.eval_epoch_interval == 0:
+                t0 = time.time()
+                # eval.fused_train_eval picks the fused device path over the
+                # staged one with the reference-exact host post-processing
+                fused = cfg.eval.fused_train_eval
+                res = evaluate(model, eval_ds, cfg, host_postproc=not fused, fused=fused,
+                               device=dev)
+                score = res["stop_score"]
+                eval_losses = None
+                if eval_loss_fn is not None:
+                    eval_losses = eval_criterion_losses(eval_loss_fn, eval_ds, cfg, adapter_on)
+                    epoch_log.update({f"eval_{k}": v for k, v in eval_losses.items()})
+                epoch_log["eval_seconds"] = time.time() - t0
+                for t in res["tables"].values():
+                    logger.log_text(t)
+                logger.log_eval(epoch + 1, score, losses=eval_losses)
+                save_jsonl(res["submissions"]["fusion"],
+                           os.path.join(workdir, "latest_preds.jsonl"))
+                if score > best_score:
+                    best_score, es_cnt = score, 0
+                    save("best", epoch)
+                    save_jsonl(res["submissions"]["fusion"],
+                               os.path.join(workdir, "best_preds.jsonl"))
+                else:
+                    es_cnt += 1
+                    if cfg.train.max_es_cnt != -1 and es_cnt > cfg.train.max_es_cnt:
+                        logger.log_text(f"Early stop at epoch {epoch}")
+                        break
+                save("latest", epoch)
+
+            if (epoch + 1) % cfg.train.save_interval == 0 or (epoch + 1) % cfg.train.lr_drop == 0:
+                save(f"e{epoch:04d}", epoch)
+    logger.close()
+    return model, history

@@ -1,0 +1,37 @@
+"""Optimizer: AdamW with a reduced-lr adapter group and a step lr decay.
+
+The reference's setup (cone/inference.py:511-523): AdamW at lr 1e-4 and
+weight decay 1e-4 on every parameter, the adapter's parameters at
+lr * coef_lr, and a StepLR that multiplies the lr by 0.1 every `lr_drop`
+epochs, here counted per optimizer step as the JAX package's `step_lr`
+does. Gradients are clipped to a global norm of `grad_clip` before the
+update (cone/train.py:87-88), in the train step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cone_tpu_torch.config import TrainConfig
+
+
+def step_lr_factor(step: int, lr_drop_epochs: int, steps_per_epoch: int) -> float:
+    """0.1 ** (epoch // lr_drop) for the update with index `step`."""
+    epoch = step // max(steps_per_epoch, 1)
+    return 0.1 ** (epoch // lr_drop_epochs)
+
+
+def make_optimizer(model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int):
+    """(AdamW, LambdaLR): a "base" group at cfg.lr and an "adapter" group
+    (parameter names containing "adapter_layer") at cfg.lr * cfg.coef_lr,
+    both with weight decay cfg.wd; the scheduler steps once per update."""
+    groups = {"base": [], "adapter": []}
+    for name, p in model.named_parameters():
+        groups["adapter" if "adapter_layer" in name else "base"].append(p)
+    scale = {"base": 1.0, "adapter": cfg.coef_lr}
+    opt = torch.optim.AdamW(
+        [{"params": ps, "lr": cfg.lr * scale[g], "name": g} for g, ps in groups.items() if ps],
+        lr=cfg.lr, weight_decay=cfg.wd)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda step: step_lr_factor(step, cfg.lr_drop, steps_per_epoch))
+    return opt, sched

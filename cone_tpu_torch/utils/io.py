@@ -1,5 +1,5 @@
-"""Small host utilities: json/jsonl io, normalization and ascii tables
-(counterparts of utils/basic_utils.py in the reference; the ascii table
+"""Small host utilities: json/jsonl io, normalization, a running meter and
+ascii tables (counterparts of utils/basic_utils.py in the reference; the ascii table
 stands in for its terminaltables dependency)."""
 
 from __future__ import annotations
@@ -45,6 +45,28 @@ def min_max_normalize(values):
     if amin == amax:
         return list(values)
     return [(v - amin) / (amax - amin) for v in values]
+
+
+class AverageMeter:
+    """Running avg/max/min tracker (utils/basic_utils.py:133)."""
+
+    def __init__(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+        self.max = -float("inf")
+        self.min = float("inf")
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.max = max(self.max, val)
+        self.min = min(self.min, val)
+
+    @property
+    def avg(self):
+        return self.sum / max(self.count, 1)
 
 
 def ascii_table(rows, title=None) -> str:

@@ -248,8 +248,8 @@ def test_what_waits_raises_and_names_its_roadmap_item(workdir):
                 "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         t_cli._open_store(str(workdir["root"] / "features"))  # an LMDB directory
-    with pytest.raises(SystemExit):
-        t_main(["train", "--workdir", workdir["run"]])  # not a subcommand of the port yet
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d"])  # 2D-TAN waits
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):  # the default device is the card
             t_main(["infer", "--workdir", workdir["run"]])

@@ -1,10 +1,14 @@
 """The port's CUDA kernels (coarse segment max, masked attention) on the
-card, each against its plain PyTorch version. Marked `cuda`: without a card every test here skips. The file
+card, each against its plain PyTorch version, and the training step on the
+card (against the same step on the CPU, and the reference's golden
+trajectory). Marked `cuda`: without a card every test here skips. The file
 imports neither jax nor cone_tpu, so it runs on a machine with PyTorch
 alone, without the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -12,7 +16,7 @@ import torch
 
 from cone_tpu_torch.ops import attention as at
 from cone_tpu_torch.ops import coarse as co
-from cone_tpu_torch.tools import bench_attn
+from cone_tpu_torch.tools import bench_attn, golden_train
 
 pytestmark = pytest.mark.cuda
 
@@ -194,3 +198,54 @@ def test_attention_kernel_raises_instead_of_falling_back(card, bad):
     with pytest.raises((ValueError, TypeError)):
         at.masked_attention(q, k, v, mask, h)
     assert at.masked_attention.launches == before
+
+
+def test_golden_train_trajectory_on_the_card(card):
+    """tests/golden/train_trajectory.npz replayed on the card within
+    tests/test_train_parity.py's limits (golden_train.LIMITS)."""
+    worst = golden_train.check(device="cuda")
+    print(f"golden trajectory on the card, worst errors: {worst}")
+
+
+def test_train_step_on_the_card_equals_the_cpu(card):
+    """One step of the matcher, the criterion and the AdamW update at a
+    narrow width, on the card and on the CPU from the same weights and
+    batch: equal assignments, losses and grad norm within 1e-4 relative,
+    weights within lr absolute (Adam's division by sqrt(v) can turn an
+    ULP-level gradient difference into an update difference of up to lr)."""
+    from cone_tpu_torch.config import ConeConfig, DataConfig, ModelConfig, TrainConfig
+    from cone_tpu_torch.data import TrainLoader, make_synthetic_dataset
+    from cone_tpu_torch.models import losses
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import batch_to_device, make_train_step, to_floats
+
+    cfg = ConeConfig(
+        model=ModelConfig(hidden_dim=64, nheads=4, dim_feedforward=128, t_feat_dim=32,
+                          v_motion_feat_dim=32, v_appear_feat_dim=32, max_q_l=8, max_v_l=32,
+                          dropout=0.0, input_dropout=0.0),
+        data=DataConfig(max_v_l=32, max_q_l=8, clip_length=1.0, max_windows=5),
+        train=TrainConfig(lr=1e-4))
+    ds = make_synthetic_dataset(cfg.data, n_videos=4, queries_per_video=4,
+                                ctx_l_range=(100, 200), dim=32, seed=2)
+    batch = next(TrainLoader(ds, bsz=16, seed=0).epoch(0))
+    base = build_family(cfg, seed=0, device="cpu")
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        b = batch_to_device(batch, dev)
+        with torch.no_grad():
+            out = model(b["query_tokens"], b["query_mask"], b["pos_motion"], b["pos_mask"])
+            assign = [losses._match_layer(o, b["span_labels"], b["span_mask"], cfg.loss)
+                      for o in [out] + out["aux_outputs"]]
+        opt, sched = make_optimizer(model, cfg.train, steps_per_epoch=1)
+        metrics = to_floats(make_train_step(model, opt, sched, cfg)(batch, True))
+        got[dev] = ([a.cpu() for a in assign], metrics,
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+    (a_cpu, m_cpu, w_cpu), (a_gpu, m_gpu, w_gpu) = got["cpu"], got["cuda"]
+    for x, y in zip(a_cpu, a_gpu):
+        assert torch.equal(x, y)
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-4 * max(1.0, abs(v)), (k, m_gpu[k], v)
+    for k, v in w_cpu.items():
+        assert float((w_gpu[k] - v).abs().max()) <= cfg.train.lr, k

@@ -28,7 +28,9 @@ NEW_MODULES = [
     "cone_tpu_torch.ops.attention", "cone_tpu_torch.serve.corpus",
     "cone_tpu_torch.serve.localizer", "cone_tpu_torch.serve.server",
     "cone_tpu_torch.tools.bench_attn", "cone_tpu_torch.train.checkpoint",
-    "cone_tpu_torch.train.loop"]
+    "cone_tpu_torch.train.loop", "cone_tpu_torch.ops.matching",
+    "cone_tpu_torch.models.losses", "cone_tpu_torch.train.optim",
+    "cone_tpu_torch.train.step", "cone_tpu_torch.utils.logging"]
 
 
 def _modules():
@@ -80,7 +82,7 @@ def test_default_device_is_the_card_and_raises_without_one():
 
 @pytest.mark.parametrize("entry", ["localizer", "retriever", "service", "evaluate",
                                    "build_family", "load_model", "cli_infer", "cli_serve",
-                                   "bench_attn"])
+                                   "bench_attn", "train", "cli_train"])
 def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -91,7 +93,8 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     from cone_tpu_torch.serve.server import MomentService
     from cone_tpu_torch.tools import bench_attn
     from cone_tpu_torch.train.checkpoint import load_model
-    from cone_tpu_torch.train.loop import build_family, evaluate
+    from cone_tpu_torch.data import make_synthetic_dataset
+    from cone_tpu_torch.train.loop import build_family, evaluate, train
 
     mcfg = ModelConfig(hidden_dim=32, nheads=4, dim_feedforward=64, t_feat_dim=32,
                        v_motion_feat_dim=32, v_appear_feat_dim=32)
@@ -109,6 +112,10 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
         "cli_infer": lambda: cli.main(["infer", "--workdir", str(tmp_path), "--untrained"]),
         "cli_serve": lambda: cli.main(["serve", "--workdir", str(tmp_path)]),
         "bench_attn": lambda: bench_attn.main([]),
+        "train": lambda: train(cfg, make_synthetic_dataset(cfg.data, dim=32), None,
+                               str(tmp_path / "run")),
+        "cli_train": lambda: cli.main(["train", "--synthetic", "--workdir",
+                                       str(tmp_path / "run")]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
