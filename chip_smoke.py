@@ -12,7 +12,8 @@ Phases, each of which raises (exit code != 0) on failure:
      MAD scale and at the seams of its tiling: error, window-ranklist
      agreement (near-tie flips counted), kernel / plain / library times
      beside the analytic bound, device time per launch from torch.profiler.
-     The coarse kernel at the Ego4D and MAD shapes and with every template
+     The coarse kernel at the Ego4D and MAD shapes, at the 2D-TAN strides
+     32 and 64 (segments of whole 16-frame tiles) and with every template
      instance; the attention kernel through its own entry point
      (cone_tpu_torch.tools.bench_attn.run) at B 640, L 110, D 256, H 8 in
      float32 and bfloat16;
@@ -32,7 +33,13 @@ Phases, each of which raises (exit code != 0) on failure:
      losses, one kernel launch per eval dispatch, the best checkpoint
      answering as the module in memory; step times and the profiled first
      epoch's device busy share;
-  8. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+  8. the 2D-TAN family: the golden fixtures tan_forward*.npz and the 4-step
+     tan_train_trajectory.npz on the card; fused TAN inference at
+     tan_ego4d's full width through the coarse kernel (launches, ranklists
+     kernel on vs off, fused vs staged, device time and its convolution
+     share); `train` at the tan_ego4d preset, bsz 32, 2 epochs of 2 steps
+     with an eval epoch and its plateau step;
+  9. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -69,7 +76,7 @@ def coarse_case(label, b, q, l_pad, d, stride, ctx, peaks, iters, gen, spb=None)
 
     from cone_tpu_torch.ops import coarse as co
     from cone_tpu_torch.ops.windows import num_windows
-    from cone_tpu_torch.tools.bench_kernels import kernel_device_us
+    from cone_tpu_torch.tools.bench_kernels import fmt_us, kernel_device_us
     from cone_tpu_torch.utils.device import cuda_ms
 
     dev = torch.device("cuda")
@@ -132,8 +139,8 @@ def coarse_case(label, b, q, l_pad, d, stride, ctx, peaks, iters, gen, spb=None)
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     print(f"coarse_segment_max {label}: B={b} Q={q} L={l_pad} D={d} stride={stride} "
           f"ctx_l={list(ctx)[:4]} segs_per_block={spb} instance={ntw} max_abs_err={err:.3e} "
-          f"window_flips={flips} kernel={ms * 1e3:.2f}us (device {device_us:.2f}us per launch, "
-          f"torch.profiler) plain={plain_ms * 1e3:.2f}us "
+          f"window_flips={flips} kernel={ms * 1e3:.2f}us (device {fmt_us(device_us)} per "
+          f"launch, torch.profiler) plain={plain_ms * 1e3:.2f}us "
           f"library(matmul+max_pool1d)={library_ms * 1e3:.2f}us "
           f"bound={res['bound_ms'] * 1e3:.2f}us ({res['bound_by']})", flush=True)
     return res
@@ -149,7 +156,7 @@ def attention_phase():
 
     from cone_tpu_torch.ops import attention as at
     from cone_tpu_torch.tools import bench_attn
-    from cone_tpu_torch.tools.bench_kernels import kernel_device_us
+    from cone_tpu_torch.tools.bench_kernels import fmt_us, kernel_device_us
 
     at.masked_attention.launches = 0
     res = bench_attn.run(device="cuda", seed=0)
@@ -162,7 +169,7 @@ def attention_phase():
                                           "masked_attention_kernel")
         print(f"masked_attention {name}: B={b} L={l} D={d} H={h} max_abs_err="
               f"{r['max_abs_err']:.3e} (tol {r['tol']:.1e}) kernel={r['ms'] * 1e3:.2f}us "
-              f"(device {r['device_us']:.2f}us per launch, torch.profiler) "
+              f"(device {fmt_us(r['device_us'])} per launch, torch.profiler) "
               f"plain={r['plain_ms'] * 1e3:.2f}us library(sdpa, additive mask)="
               f"{r['library_ms'] * 1e3:.2f}us (its err {r['library_max_abs_err']:.1e}) "
               f"bound={r['bound_ms'] * 1e3:.2f}us ({r['bound_by']}: {r['bytes']} bytes, "
@@ -601,6 +608,378 @@ def training_phase(card, device="cuda"):
     return meas, launches
 
 
+def near_tie_flips(pipe_off, ds, ranklists, ranklists_off):
+    """Ranklists with the coarse kernel on against the plain path's: where
+    they differ, the kernel's order scored by the plain version must still
+    descend up to REL_TOL (only near-ties may swap). Returns (identical
+    queries, window flips)."""
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+
+    diff = [q for q in ranklists if ranklists[q] != ranklists_off[q]]
+    flips = 0
+    for qid in diff:
+        ex = next(e for e in ds.examples if e.query_id == qid)
+        appear, a_scale, _, _, ctx_l = pipe_off._device_video(ex.clip_id)
+        with torch.inference_mode():
+            adapted = pipe_off._adapt(pipe_off._decode(appear, a_scale))[None]
+            cls = torch.from_numpy(ds.query_features(qid)[1]).cuda()[None, None]
+            s, _ = window_scores_from_frame_scores(
+                cls @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device="cuda"),
+                pipe_off.stride, num_windows(ctx_l, pipe_off.stride))
+        s = s[0, 0].cpu().numpy()[ranklists[qid]]
+        check(bool((s[:-1] >= s[1:] - REL_TOL * np.maximum(1.0, np.abs(s[1:]))).all()),
+              f"{qid}: ranklists with the kernel on/off differ beyond near-ties")
+        flips += sum(a != b for a, b in zip(ranklists[qid], ranklists_off[qid]))
+    return len(ranklists) - len(diff), flips
+
+
+def fused_vs_staged(subs, subs_s):
+    """Worst (span, score) differences of the fused run's moments from the
+    staged run's with host post-processing, all three modalities."""
+    import numpy as np
+
+    worst = [0.0, 0.0]
+    for m, col in (("fusion", 4), ("proposal", 2), ("matching", 3)):
+        fused_rows = {r["query_id"]: np.asarray(r["predicted_times"], np.float64) for r in subs[m]}
+        for r in subs_s[m]:
+            want = np.asarray(r["predicted_times"], np.float64)
+            got = fused_rows[r["query_id"]]
+            check(got.shape[0] == want.shape[0],
+                  f"{m} {r['query_id']}: {got.shape[0]} fused vs {want.shape[0]} staged moments")
+            worst[0] = max(worst[0], float(np.abs(got[:, :2] - want[:, :2]).max()))
+            worst[1] = max(worst[1], float(np.abs(got[:, 2] - want[:, col]).max()))
+    check(worst[0] <= SPAN_ATOL and worst[1] <= SCORE_ATOL,
+          f"fused vs staged: span err {worst[0]}, score err {worst[1]}")
+    return worst
+
+
+def well_formed_runs(subs, n_q, max_after_nms, label):
+    import numpy as np
+
+    for m in ("fusion", "proposal", "matching"):
+        rows = {r["query_id"]: r for r in subs[m]}
+        check(len(rows) == n_q, f"{label} {m}: {len(rows)} of {n_q} queries")
+        for r in rows.values():
+            t = np.asarray(r["predicted_times"], np.float64)
+            check(t.ndim == 2 and t.shape[1] == 3 and 1 <= len(t) <= max_after_nms
+                  and np.isfinite(t).all() and (t[:, 1] >= t[:, 0]).all(),
+                  f"{label} {m} {r['query_id']}: bad moments {t.tolist()}")
+
+
+TAN_GOLDEN_ATOL = 3e-4   # tests/test_tan_parity.py
+
+
+def tan_goldens(device="cuda"):
+    """The 2D-TAN fixtures on the card: tan_forward.npz and
+    tan_forward_stride2.npz through the port's model (map mask exact, scores
+    atol 3e-4; the stride-2 top-1 decode atol 1e-5, through the pipeline's
+    own cell selection on the card, from the fixture's scores as
+    tests/test_tan_parity.py decodes them), then tan_train_trajectory.npz
+    replayed for its 4 steps (cone_tpu_torch/tools/golden_tan_train.py:
+    losses and grad norm 2e-3 relative, weights 5e-4 absolute, each
+    parameter's update 1e-3 relative in norm)."""
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import TanConfig
+    from cone_tpu_torch.convert import load_reference_tan_state_dict
+    from cone_tpu_torch.eval.tan_pipeline import top_k_ref_order
+    from cone_tpu_torch.models.tan import ConeTanModel
+    from cone_tpu_torch.tools import golden_tan_train
+
+    t0 = time.time()
+    base = dict(num_clips=64, hidden_size=64, v_feat_dim=64, t_feat_dim=48, txt_hidden_size=64,
+                map_hidden_sizes=(64, 64, 64, 64))
+    errs = {}
+    for name, kw in (("tan_forward", {}),
+                     ("tan_forward_stride2", dict(frame_kernel=2, frame_stride=2,
+                                                  adapter_module="none"))):
+        g = dict(np.load(os.path.join(REPO, "tests", "golden", name + ".npz")).items())
+        model = ConeTanModel(TanConfig(**base, **kw), device=device)
+        model.load_state_dict(load_reference_tan_state_dict(
+            {k: v for k, v in g.items() if k.startswith("w::")}))
+        with torch.no_grad():
+            scores, mask = model(*(torch.from_numpy(g[k]).to(device)
+                                   for k in ("tok", "tok_mask", "vis")))
+        check(np.array_equal(mask.cpu().numpy(), g["map_mask"]), f"{name}: map mask differs")
+        errs[name] = float(np.abs(scores.cpu().numpy() - g["scores"]).max())
+        check(errs[name] <= TAN_GOLDEN_ATOL, f"{name}: scores off by {errs[name]}")
+        if "decoded_top1" in g:
+            masked = torch.where(torch.from_numpy(g["map_mask"]).to(device) > 0,
+                                 torch.from_numpy(g["scores"]).to(device), -torch.inf)
+            _, idx = top_k_ref_order(masked.reshape(len(g["scores"]), -1), 1)
+            cells = torch.stack([idx // 64, idx % 64 + 1], dim=-1).float()
+            dec = ((cells * 2 + int(g["video_start"])) * float(g["clip_len"]))[:, 0]
+            errs["decoded_top1"] = float(np.abs(dec.cpu().numpy() - g["decoded_top1"]).max())
+            check(errs["decoded_top1"] <= 1e-5, f"{name}: decode off by {errs['decoded_top1']}")
+    worst = golden_tan_train.check(device=device)
+    print(f"golden tan_forward.npz / tan_forward_stride2.npz on {device}: map masks exact, "
+          f"scores max abs err {errs['tan_forward']:.2e} / {errs['tan_forward_stride2']:.2e} "
+          f"(<= {TAN_GOLDEN_ATOL}), stride-2 decode {errs['decoded_top1']:.1e} (<= 1e-5); "
+          f"tan_train_trajectory.npz 4 steps: worst loss err {worst['losses']:.2e} (< "
+          f"{golden_tan_train.LIMITS['losses']} rel), grad norm {worst['grad_norm']:.2e}, "
+          f"weights {worst['weights']:.2e} (< {golden_tan_train.LIMITS['weights']} abs, "
+          f"{worst['worst_weight']}), updates {worst['update']:.2e} (< "
+          f"{golden_tan_train.LIMITS['update']} rel, {worst['worst_update']}), "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return dict(goldens=errs, train_trajectory=worst)
+
+
+def tan_corpus(cfg, n_videos, qpv, seed):
+    """A planted-signal synthetic corpus at the TAN preset's widths: videos
+    and query CLS at v_appear_feat_dim, token features at t_feat_dim (768-d
+    RoBERTa at tan_ego4d), ctx_l 2 240-2 245."""
+    import numpy as np
+
+    from cone_tpu_torch.data import InMemoryArrayStore, TextFeatureStore
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ds = make_synthetic_dataset(cfg.data, n_videos=n_videos, queries_per_video=qpv,
+                                ctx_l_range=(2240, 2246), dim=cfg.model.v_appear_feat_dim,
+                                signal=3.0, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    toks = {e.query_id: rng.normal(size=(len(ds.text.get_tokens(e.query_id)),
+                                          cfg.model.t_feat_dim)).astype(np.float32)
+            for e in ds.examples}
+    ds.text = TextFeatureStore(InMemoryArrayStore(toks), ds.text.cls)
+    return ds
+
+
+def _device_us(evt, self_only):
+    name = ("self_" if self_only else "") + "device_time_total"
+    t = getattr(evt, name, None)
+    return getattr(evt, name.replace("device", "cuda")) if t is None else t
+
+
+def device_breakdown(fn):
+    """torch.profiler over one call of fn: (wall s with the profiler on,
+    device s, {op: device s of the kernels it launched itself} for the
+    convolution, LSTM and linear ops, the key_averages table). Self time:
+    an op's total also counts the profiler's "Command Buffer Full" spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    avgs = prof.key_averages()
+    busy = sum(_device_us(e, True) for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    ops = {}
+    for e in avgs:
+        if e.key in ("aten::cudnn_convolution", "aten::convolution_backward", "aten::_cudnn_rnn",
+                     "aten::_cudnn_rnn_backward", "aten::addmm", "aten::mm", "aten::bmm"):
+            ops[e.key] = _device_us(e, True) / 1e6
+    return wall, busy, ops, avgs.table(sort_by="self_cuda_time_total", row_limit=12)
+
+
+def tan_inference_phase(card, device="cuda"):
+    """Fused 2D-TAN inference at tan_ego4d's full width (hidden 256, a
+    3-layer LSTM of 256 over 768-d tokens, 256-d video, 64x64 map of 1 104
+    valid cells, four 9x9 map convs of 256 channels, topk_window 20,
+    PRE_NMS_POOL 128, proposal_top_k 10), random seeded weights under the
+    reference's CONE_TAN names, the coarse kernel on (stride 32), over 2
+    videos x 8 queries at ctx_l about 2 240 with query_chunk 8: 160 windows
+    a dispatch, 2 dispatches a run (the cut is in queries: about 40 TFLOP a
+    dispatch). Checks: one coarse launch per dispatch, well-formed moments,
+    kernel-on vs kernel-off ranklists (near-tie flips counted), fused vs
+    staged within the parity limits. Returns (measurements, launches)."""
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import tan_ego4d_config
+    from cone_tpu_torch.convert import load_reference_tan_state_dict, random_reference_tan_state_dict
+    from cone_tpu_torch.eval.pipeline import make_pipeline
+    from cone_tpu_torch.eval.tan_pipeline import TanInferencePipeline
+    from cone_tpu_torch.models.tan import ConeTanModel
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.ops.windows import num_windows
+
+    cfg = tan_ego4d_config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dset_name="synthetic"),
+                      eval=dataclasses.replace(cfg.eval, query_chunk=8, use_pallas_coarse=True))
+    n_videos, qpv = 2, 8
+    t0 = time.time()
+    ds = tan_corpus(cfg, n_videos, qpv, seed=0)
+    model = ConeTanModel(cfg.tan, device=device)
+    model.load_state_dict(load_reference_tan_state_dict(
+        random_reference_tan_state_dict(cfg.tan, seed=0)))
+    pipe = make_pipeline(model, ds, cfg, device=device)
+    check(isinstance(pipe, TanInferencePipeline), "make_pipeline built no TAN pipeline")
+    dispatches = n_videos * -(-qpv // cfg.eval.query_chunk)
+    windows = dispatches * cfg.eval.query_chunk * cfg.data.topk_window
+    print(f"TAN path: tan_ego4d full width (hidden {cfg.tan.hidden_size}, LSTM "
+          f"{cfg.tan.lstm_layers}x{cfg.tan.txt_hidden_size} over {cfg.tan.t_feat_dim}-d tokens, "
+          f"{cfg.tan.num_clips}x{cfg.tan.num_clips} map with {int(model.map_mask.sum())} cells, "
+          f"map convs {cfg.tan.map_kernel_sizes} x {cfg.tan.map_hidden_sizes}; topk_window "
+          f"{cfg.data.topk_window}, proposal_top_k {cfg.tan.proposal_top_k}, coarse stride "
+          f"{pipe.stride}), {n_videos} videos x {qpv} queries, ctx_l "
+          f"{[len(ds.video_features(v)[0]) for v in ds.video_ids]}, {windows} windows a run, "
+          f"set-up {time.time() - t0:.1f} s", flush=True)
+
+    co.coarse_segment_max.launches = 0
+    t0 = time.time()
+    subs, ranklists = pipe.run(host_postproc=False, fused=True)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = co.coarse_segment_max.launches
+    check(launches == dispatches,
+          f"TAN path launched coarse_segment_max {launches} times, want {dispatches}")
+    n_q = len(ds.examples)
+    well_formed_runs(subs, n_q, cfg.eval.max_after_nms, "TAN path")
+    for e in ds.examples:
+        n_win = num_windows(len(ds.video_features(e.clip_id)[0]), pipe.stride)
+        check(sorted(ranklists[e.query_id]) == list(range(n_win)),
+              f"{e.query_id}: ranklist is not a permutation of the {n_win} windows")
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        pipe.run(host_postproc=False, fused=True)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    prof_wall, busy, ops, table = device_breakdown(
+        lambda: pipe.run(host_postproc=False, fused=True))
+    conv_s = ops.get("aten::cudnn_convolution", 0.0)
+    print(table)
+    print(f"TAN fused run: first {first_s:.3f} s, warm {[round(w, 4) for w in walls]} s "
+          f"({n_q} queries, {dispatches} dispatches, {launches} coarse launches); profiled run: "
+          f"wall {prof_wall:.4f} s, device {busy:.4f} s (busy share {busy / prof_wall:.3f}), "
+          f"convolutions {conv_s:.4f} s ({conv_s / busy if busy else float('nan'):.3f} of the "
+          f"device), LSTM {ops.get('aten::_cudnn_rnn', 0.0):.4f} s [{card}]", flush=True)
+
+    cfg_off = cfg.replace(eval=dataclasses.replace(cfg.eval, use_pallas_coarse=False))
+    _, ranklists_off = make_pipeline(model, ds, cfg_off, device=device).run(
+        host_postproc=False, fused=True)
+    same, flips = near_tie_flips(make_pipeline(model, ds, cfg_off, device=device), ds,
+                                 ranklists, ranklists_off)
+    # the staged path with the device post-processing (the fused path's float32
+    # NMS). Map cells sit on a clip grid: spans of 32 and 64 clips from one
+    # start have an IoU of exactly 0.5 = nms_thd, where the host's float64 NMS
+    # and the device's float32 one may decide `iou > nms_thd` apart, so the
+    # host path is counted, not held (tests/test_torch_tan_pipeline.py)
+    subs_d, ranklists_d = pipe.run(host_postproc=False)
+    check(ranklists_d == ranklists, "TAN staged ranklists differ from fused")
+    worst = [0.0, 0.0]
+    by_qid = {r["query_id"]: np.asarray(r["predicted_times"], np.float64) for r in subs_d["fusion"]}
+    for r in subs["fusion"]:
+        got, want = np.asarray(r["predicted_times"], np.float64), by_qid[r["query_id"]]
+        check(got.shape == want.shape, f"TAN {r['query_id']}: {got.shape} fused vs {want.shape}")
+        worst = [max(worst[0], float(np.abs(got[:, :2] - want[:, :2]).max())),
+                 max(worst[1], float(np.abs(got[:, 2] - want[:, 2]).max()))]
+    check(worst[0] <= SPAN_ATOL and worst[1] <= SCORE_ATOL,
+          f"TAN fused vs staged: span err {worst[0]}, score err {worst[1]}")
+    subs_h, _ = pipe.run(host_postproc=True)
+    host_same = 0
+    for m, col in (("fusion", 4), ("proposal", 2), ("matching", 3)):
+        fused_rows = {r["query_id"]: np.asarray(r["predicted_times"], np.float64) for r in subs[m]}
+        for r in subs_h[m]:
+            want, got = np.asarray(r["predicted_times"], np.float64), fused_rows[r["query_id"]]
+            host_same += bool(got.shape[0] == want.shape[0]
+                              and np.abs(got[:, :2] - want[:, :2]).max() <= SPAN_ATOL
+                              and np.abs(got[:, 2] - want[:, col]).max() <= SCORE_ATOL)
+    print(f"TAN ranklists kernel on vs off: {same}/{n_q} identical, {flips} near-tie flips; "
+          f"fused vs staged device postproc: max span err {worst[0]:.2e} (<= {SPAN_ATOL}), max "
+          f"score err {worst[1]:.2e} (<= {SCORE_ATOL}); host postproc agrees on {host_same} of "
+          f"{3 * n_q} (query, modality) rows", flush=True)
+    del pipe, model
+    torch.cuda.empty_cache()
+    return dict(first_run_s=first_s, warm_run_s=walls, profiled_wall_s=prof_wall,
+                device_s=busy, conv_device_s=conv_s, conv_share=conv_s / busy if busy else None,
+                lstm_device_s=ops.get("aten::_cudnn_rnn", 0.0), windows_per_run=windows,
+                dispatches=dispatches, near_tie_flips=flips, fused_vs_staged=worst,
+                host_rows_agreeing=host_same, rows=3 * n_q), launches
+
+
+def tan_training_phase(card, device="cuda"):
+    """`train` at the tan_ego4d preset as `train --preset tan_ego4d
+    --synthetic --debug` resolves it (synthetic tokens at the video width,
+    8 videos x 8 queries), bsz 32: 2 epochs of 2 steps, the adapter on from
+    the second (both step variants), one eval epoch through the coarse
+    kernel (debug: one query chunk, one dispatch) with the eval-split
+    losses and a plateau step. Checks: finite losses, one coarse launch,
+    the plateau state in the `latest` checkpoint, the module back in train
+    mode. Returns (measurements, coarse launches)."""
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import tan_ego4d_config
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.train.loop import train
+
+    cfg = tan_ego4d_config()
+    dim = cfg.model.v_appear_feat_dim
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, t_feat_dim=dim),
+        tan=dataclasses.replace(cfg.tan, t_feat_dim=dim),
+        data=dataclasses.replace(cfg.data, dset_name="synthetic"),
+        train=dataclasses.replace(cfg.train, n_epoch=2, eval_epoch_interval=2,
+                                  start_epoch_for_adapter=1, debug=True),
+        eval=dataclasses.replace(cfg.eval, query_chunk=8, use_pallas_coarse=True))
+    ds = make_synthetic_dataset(cfg.data, n_videos=8, queries_per_video=8, dim=dim, seed=0)
+    with tempfile.TemporaryDirectory() as workdir:
+        co.coarse_segment_max.launches = 0
+        t0 = time.time()
+        model, history = train(cfg, ds, ds, workdir, device=device)
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        launches = co.coarse_segment_max.launches
+        check(model.training, "the TAN module is not in train mode after the eval epoch")
+        check(len(history) == 2 and all(len(h["step_times"]) == 2 for h in history),
+              f"history: {[(h['epoch'], len(h['step_times'])) for h in history]}")
+        for h in history:
+            bad = {k: v for k, v in h.items() if k.startswith(("loss", "eval_loss", "grad_norm"))
+                   and not np.isfinite(v)}
+            check(not bad, f"TAN epoch {h['epoch']}: non-finite {bad}")
+        check("loss_adapter" not in history[0] and "loss_adapter" in history[1],
+              "the adapter term is not off in epoch 1 and on in epoch 2")
+        check(launches == 1, f"TAN eval epoch launched coarse_segment_max {launches} times, want 1")
+        check(history[1]["eval_loss_overall"] > 0 and "lr" in history[1],
+              "the TAN eval epoch logged no eval losses or lr")
+        extra = torch.load(os.path.join(workdir, "model_latest.ckpt"), map_location="cpu",
+                           weights_only=True)["extra"]
+        check({"plateau_best", "plateau_num_bad"} <= set(extra),
+              f"no plateau state in the latest checkpoint: {extra}")
+    # one more step, profiled: device time and the convolutions' share
+    from cone_tpu_torch.data.dataset import TrainLoader
+    from cone_tpu_torch.train.optim import make_tan_optimizer
+    from cone_tpu_torch.train.step import batch_to_device, to_floats
+    from cone_tpu_torch.train.tan_step import make_tan_train_step
+
+    step = make_tan_train_step(model, make_tan_optimizer(model, cfg.train)[0], cfg.tan,
+                               cfg.loss.neg_loss, cfg.loss.adapter_loss_coef)
+    batch = batch_to_device(next(TrainLoader(ds, bsz=cfg.train.bsz, seed=1).epoch(0)), device)
+    to_floats(step(batch, True))   # warm: the new optimizer's state
+    prof_wall, busy, ops, table = device_breakdown(lambda: to_floats(step(batch, True)))
+    conv_s = ops.get("aten::cudnn_convolution", 0.0) + ops.get("aten::convolution_backward", 0.0)
+    print(table)
+    print(f"TAN train step, profiled: wall {prof_wall:.4f} s, device {busy:.4f} s (busy share "
+          f"{busy / prof_wall:.3f}), convolutions forward and backward {conv_s:.4f} s "
+          f"({conv_s / busy if busy else float('nan'):.3f} of the device) [{card}]", flush=True)
+    steps = [t for h in history for t in h["step_times"]]
+    warm = history[1]["step_times"]
+    print(f"train --preset tan_ego4d (synthetic, bsz {cfg.train.bsz}): 2 epochs of 2 steps in "
+          f"{train_s:.2f} s; losses finite, bce {history[0]['loss_bce']:.4f} -> "
+          f"{history[1]['loss_bce']:.4f}, adapter {history[1]['loss_adapter']:.4f} in epoch 2; "
+          f"eval epoch {history[1]['eval_seconds']:.3f} s with {launches} coarse launch, stop "
+          f"score {extra['best_score']:.3f}, plateau best {extra['plateau_best']:.3f}, lr "
+          f"{history[1]['lr']:.2e}; step times (host clock, each ends in reading its metrics): "
+          f"first {steps[0] * 1e3:.2f} ms, warm {[round(t * 1e3, 2) for t in warm]} ms [{card}]",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(first_step_ms=steps[0] * 1e3, warm_step_ms=[t * 1e3 for t in warm],
+                train_seconds=train_s, eval_seconds=history[1]["eval_seconds"],
+                profiled_step_wall_s=prof_wall, step_device_s=busy, step_conv_device_s=conv_s,
+                step_conv_share=conv_s / busy if busy else None), launches
+
+
 def _self_device_us(evt):
     t = getattr(evt, "self_device_time_total", None)
     return evt.self_cuda_time_total if t is None else t
@@ -707,7 +1086,7 @@ def main():
     from cone_tpu_torch.ops import attention as at
     from cone_tpu_torch.ops import coarse as co
     from cone_tpu_torch.utils.device import card_peaks
-    from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+    from cone_tpu_torch.ops.windows import num_windows
 
     # 1. the card
     t_start = time.time()
@@ -762,8 +1141,20 @@ def main():
         coarse_case("stride7", 1, 16, 330, 64, 7, [300], peaks, 0, gen, 9),
         coarse_case("d100", 1, 32, 330, 100, 45, [300], peaks, 0, gen, 2),
         coarse_case("one-frame-video", 2, 8, 330, 64, 45, [1, 300], peaks, 0, gen, 2),
+        # the 2D-TAN strides 32 (tan_ego4d) and 64 (tan_mad): segments of whole
+        # 16-frame tiles, runs of whole tiles
+        coarse_case("ego4d-tan-q8", 1, 8, 2304, 256, 32, [2241], peaks, 500, gen),
+        coarse_case("ego4d-tan", 1, 32, 2304, 256, 32, [2241], peaks, 500, gen),
+        coarse_case("tan-mad", 1, 32, 36864, 512, 64, [36000], peaks, 100, gen),
+        coarse_case("tan-video-batch-ctx-on-segment", 2, 32, 2304, 256, 32, [2304, 2240],
+                    peaks, 0, gen),
+        coarse_case("tan-run-ends-at-ctx-on-tile", 1, 32, 1024, 512, 64, [448], peaks, 0, gen, 7),
+        coarse_case("tan-ctx-a-tile-short", 1, 32, 1024, 512, 64, [432], peaks, 0, gen, 3),
+        coarse_case("tan-two-segments", 2, 8, 64, 64, 32, [64, 31], peaks, 0, gen, 1),
     ]
     main_case, mad_case = cases[0], cases[2]
+    tan_cases = {c["label"]: c for c in cases if c["label"] in ("ego4d-tan-q8", "ego4d-tan",
+                                                                  "tan-mad")}
     check({c["ntw"] for c in cases} == {1, 2, 4, 8, 16},
           f"coarse cases reached instances {sorted({c['ntw'] for c in cases})}, want all five")
     print(f"coarse_segment_max: {len(cases)} cases, {sum(c['window_flips'] for c in cases)} "
@@ -807,14 +1198,7 @@ def main():
           "the inference path launched the attention kernel (the model is not routed through it)")
 
     n_q = len(ds.examples)
-    for m in ("fusion", "proposal", "matching"):
-        rows = {r["query_id"]: r for r in subs[m]}
-        check(len(rows) == n_q, f"{m}: {len(rows)} of {n_q} queries")
-        for r in rows.values():
-            t = np.asarray(r["predicted_times"], np.float64)
-            check(t.ndim == 2 and t.shape[1] == 3 and 1 <= len(t) <= cfg.eval.max_after_nms
-                  and np.isfinite(t).all() and (t[:, 1] >= t[:, 0]).all(),
-                  f"{m} {r['query_id']}: bad moments {t.tolist()}")
+    well_formed_runs(subs, n_q, cfg.eval.max_after_nms, "main path")
     for v in ds.video_ids:
         n_win = num_windows(len(ds.video_features(v)[0]), pipe.stride)
         for e in ds.examples:
@@ -836,40 +1220,14 @@ def main():
     cfg_off = cfg.replace(eval=dataclasses.replace(cfg.eval, use_pallas_coarse=False))
     pipe_off = InferencePipeline(model, ds, cfg_off, device="cuda")
     _, ranklists_off = pipe_off.run(host_postproc=False, fused=True)
-    diff = [q for q in ranklists if ranklists[q] != ranklists_off[q]]
-    near_tie_flips = 0
-    for qid in diff:
-        # allowed only where the plain scores of the swapped windows tie
-        ex = next(e for e in ds.examples if e.query_id == qid)
-        appear, a_scale, _, _, ctx_l = pipe_off._device_video(ex.clip_id)
-        with torch.inference_mode():
-            adapted = pipe_off._adapt(pipe_off._decode(appear, a_scale))[None]
-            cls = torch.from_numpy(ds.query_features(qid)[1]).cuda()[None, None]
-            s, _ = window_scores_from_frame_scores(
-                cls @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device="cuda"),
-                pipe_off.stride, num_windows(ctx_l, pipe_off.stride))
-        s = s[0, 0].cpu().numpy()[ranklists[qid]]
-        check(bool((s[:-1] >= s[1:] - REL_TOL * np.maximum(1.0, np.abs(s[1:]))).all()),
-              f"{qid}: ranklists with the kernel on/off differ beyond near-ties")
-        near_tie_flips += sum(a != b for a, b in zip(ranklists[qid], ranklists_off[qid]))
-    print(f"ranklists kernel on vs off: {n_q - len(diff)}/{n_q} identical, "
-          f"{near_tie_flips} near-tie flips", flush=True)
+    same, flips = near_tie_flips(pipe_off, ds, ranklists, ranklists_off)
+    print(f"ranklists kernel on vs off: {same}/{n_q} identical, {flips} near-tie flips",
+          flush=True)
 
     # staged path with the reference-exact host post-processing
     subs_s, ranklists_s = pipe.run(host_postproc=True)
     check(ranklists_s == ranklists, "staged ranklists differ from fused")
-    worst = [0.0, 0.0]
-    for m, col in (("fusion", 4), ("proposal", 2), ("matching", 3)):
-        fused_rows = {r["query_id"]: np.asarray(r["predicted_times"], np.float64) for r in subs[m]}
-        for r in subs_s[m]:
-            want = np.asarray(r["predicted_times"], np.float64)
-            got = fused_rows[r["query_id"]]
-            check(got.shape[0] == want.shape[0],
-                  f"{m} {r['query_id']}: {got.shape[0]} fused vs {want.shape[0]} staged moments")
-            worst[0] = max(worst[0], float(np.abs(got[:, :2] - want[:, :2]).max()))
-            worst[1] = max(worst[1], float(np.abs(got[:, 2] - want[:, col]).max()))
-    check(worst[0] <= SPAN_ATOL and worst[1] <= SCORE_ATOL,
-          f"fused vs staged: span err {worst[0]}, score err {worst[1]}")
+    worst = fused_vs_staged(subs, subs_s)
     print(f"fused vs staged host postproc: all 3 modalities, max span err {worst[0]:.2e} "
           f"(<= {SPAN_ATOL}), max score err {worst[1]:.2e} (<= {SCORE_ATOL})", flush=True)
 
@@ -880,6 +1238,11 @@ def main():
     training, train_launches = training_phase(smi)
     check(train_launches > 0, "the training phase launched no coarse_segment_max kernel")
 
+    # 8. the 2D-TAN family: goldens, inference and training at tan_ego4d width
+    tan = tan_goldens()
+    tan["inference"], tan_launches = tan_inference_phase(smi)
+    tan["training"], tan_train_launches = tan_training_phase(smi)
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -887,14 +1250,19 @@ def main():
     kernels = [dict(
         name="coarse_segment_max", route="cuda",
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
-        replaces="cone_tpu/ops/pallas_coarse.py:66", launches=launches + train_launches,
-        launches_by_path={"inference": launches, "train_eval": train_launches},
+        replaces="cone_tpu/ops/pallas_coarse.py:66",
+        launches=launches + train_launches + tan_launches + tan_train_launches,
+        launches_by_path={"inference": launches, "train_eval": train_launches,
+                          "tan_inference": tan_launches, "tan_train_eval": tan_train_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
         **{k: main_case[k] for k in keys},
         mad=dict(shape="B 1, Q 32, L 36864, D 512, stride 62",
-                 max_abs_err=mad_case["max_abs_err"], **{k: mad_case[k] for k in keys}))]
+                 max_abs_err=mad_case["max_abs_err"], **{k: mad_case[k] for k in keys}),
+        tan={label: dict(shape=f"B {c['B']}, Q {c['Q']}, L {c['L']}, D {c['D']}, stride "
+                               f"{c['stride']}", max_abs_err=c["max_abs_err"],
+                         **{k: c[k] for k in keys}) for label, c in tan_cases.items()})]
     a32, a16 = attn["results"]["float32"], attn["results"]["bfloat16"]
     kernels.append(dict(
         name="masked_attention", route="cuda",
@@ -904,7 +1272,8 @@ def main():
         **{k: a32[k] for k in keys},
         bfloat16=dict(max_abs_err=attn_err["bfloat16"], **{k: a16[k] for k in keys})))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"serving_latency_ms": serving, "training": training, "card": smi}))
+    print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

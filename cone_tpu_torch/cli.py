@@ -13,11 +13,13 @@ feature directory holds tokens.cfs and cls.cfs) and a workdir with
 config.json and model_<tag>.ckpt, a reference-named torch checkpoint
 (train/checkpoint.py).
 
-`train` starts from a preset (ego4d, mad) or a --config file, writes its
-workdir (config.json, checkpoints, logs) and trains on one device.
+`train` starts from a preset (ego4d, mad, and the 2D-TAN family's tan_ego4d,
+tan_mad) or a --config file, writes its workdir (config.json, checkpoints,
+logs) and trains on one device. A 2D-TAN workdir infers and serves like a
+CONE one.
 
 Not ported yet: demo, reformat, extract-*, convert-store; of train, the
-bfloat16 *_scratch presets, the 2D-TAN presets and multi-device training.
+bfloat16 *_scratch presets and multi-device training.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def _apply_overrides(cfg, sets):
             val = int(val)
         elif isinstance(cur, float):
             val = float(val)
+        elif isinstance(cur, tuple):  # comma-separated, e.g. tan.map_hidden_sizes=64,64
+            elem = type(cur[0]) if cur else int
+            val = tuple(elem(x) for x in val.split(",") if x)
         cfg = cfg.replace(**{section: dataclasses.replace(sec, **{field: val})})
     return cfg
 
@@ -79,17 +84,14 @@ def _load_cfg(args):
     if args.config:
         # a user-supplied file: unknown keys are typos, fail loudly
         cfg = C.ConeConfig.load(args.config, strict=True)
-    elif args.preset in ("ego4d", "mad"):
-        cfg = {"ego4d": C.ego4d_config, "mad": C.mad_config}[args.preset]()
-    elif args.preset.endswith("_scratch"):
+    elif not args.preset.endswith("_scratch"):
+        cfg = {"ego4d": C.ego4d_config, "mad": C.mad_config,
+               "tan_ego4d": C.tan_ego4d_config, "tan_mad": C.tan_mad_config}[args.preset]()
+    else:
         raise NotImplementedError(
             f"--preset {args.preset}: its bfloat16 compute_dtype is not ported (the "
             "port's model runs float32 only); train with --preset "
             f"{args.preset[:-len('_scratch')]}")
-    else:
-        raise NotImplementedError(
-            f"--preset {args.preset}: the 2D-TAN family is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
     return _apply_overrides(cfg, args.set)
 
 
@@ -122,8 +124,10 @@ def cmd_train(args):
         dim = cfg.model.v_appear_feat_dim
         if cfg.model.t_feat_dim != dim:
             # synthetic text features share the appearance dim (the matching
-            # branch needs cls dim == appearance dim)
-            cfg = cfg.replace(model=dataclasses.replace(cfg.model, t_feat_dim=dim))
+            # branch needs cls dim == appearance dim), so presets with wider
+            # tokens (tan_ego4d's 768-d RoBERTa) shrink to it for smoke runs
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model, t_feat_dim=dim),
+                              tan=dataclasses.replace(cfg.tan, t_feat_dim=dim))
         train_ds = make_synthetic_dataset(cfg.data, n_videos=8, queries_per_video=8,
                                           dim=dim, seed=0)
         eval_ds = train_ds
@@ -388,11 +392,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="cone_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="train a CONE model")
+    t = sub.add_parser("train", help="train a CONE or 2D-TAN model")
     t.add_argument("--config", help="a config json (strict: unknown keys raise)")
     t.add_argument("--preset", choices=PRESETS, default="ego4d",
-                   help="ego4d and mad train; the bfloat16 *_scratch presets and the"
-                        " 2D-TAN tan_* presets are not ported yet and raise")
+                   help="ego4d, mad and the 2D-TAN tan_ego4d, tan_mad train; the"
+                        " bfloat16 *_scratch presets are not ported yet and raise")
     t.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
     t.add_argument("--workdir", required=True)
     t.add_argument("--train_path")

@@ -46,8 +46,8 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TanConfig:
-    """CONE-TAN (2D-TAN head) hyperparameters (the port does not run this
-    family yet; the section exists so saved configs parse)."""
+    """CONE-TAN (2D-TAN head) hyperparameters (models/tan.py), read when
+    model.model_family is "tan"."""
 
     num_clips: int = 64
     hidden_size: int = 256
@@ -70,6 +70,16 @@ class TanConfig:
     bias: float = 0.5
     temperature: float = 0.07
     proposal_top_k: int = 10
+
+
+def check_tan_geometry(tan: TanConfig, max_v_l: int) -> None:
+    """TARGET_STRIDE geometry: the raw window of max_v_l clips is
+    NUM_SAMPLE_CLIPS = num_clips * frame_stride, which the frame layer
+    pools to num_clips map cells (cone_2dtan/lib/datasets/mad.py:150-153)."""
+    if tan.num_clips * tan.frame_stride != max_v_l:
+        raise ValueError(
+            f"TAN geometry: num_clips*frame_stride ({tan.num_clips}*{tan.frame_stride}) "
+            f"must equal the window length data.max_v_l ({max_v_l})")
 
 
 @dataclass(frozen=True)
@@ -251,4 +261,51 @@ def mad_config() -> ConeConfig:
         train=TrainConfig(n_epoch=30, lr_drop=25, bsz=32, seed=2020),
         eval=EvalConfig(ctx_buckets=(8192, 16384, 24576, 36864, 49152),
                         fused_train_eval=True),
+    )
+
+
+def tan_ego4d_config() -> ConeConfig:
+    """Canonical 2D-TAN Ego4D config (cone_2dtan/experiments/ego4d/
+    2D-TAN-64x64-K9L4-pool-sw-0.5bias-nms-con-match-adapt.yaml): window 64
+    @0.535 s EgoVLP features, stride-1 frame pooling -> 64x64 map."""
+    return ConeConfig(
+        # the shared pipeline sizes token arrays by model.t_feat_dim and CLS
+        # arrays by model.v_appear_feat_dim, so these mirror the tan section
+        model=ModelConfig(model_family="tan", t_feat_dim=768,
+                          v_motion_feat_dim=256, v_appear_feat_dim=256),
+        # ADAPTER_LOSS_WEIGHT 0.1 (lib/core/config.py:83)
+        loss=LossConfig(adapter_loss_coef=0.1),
+        data=DataConfig(
+            dset_name="ego4d", max_v_l=64, clip_length=0.535, topk_window=20,
+            max_ctx_l=2304,
+        ),
+        # MAX_EPOCH 90, adapter from epoch 28 (ADAPTER_START_EPOCH 27 via a
+        # strict >, lib/core/config.py:84)
+        train=TrainConfig(n_epoch=90, bsz=32, lr=1e-4, wd=0.0,
+                          start_epoch_for_adapter=28),
+        tan=TanConfig(num_clips=64, v_feat_dim=256, t_feat_dim=768,
+                      frame_kernel=1, frame_stride=1),
+    )
+
+
+def tan_mad_config() -> ConeConfig:
+    """Canonical 2D-TAN MAD config (cone_2dtan/experiments/mad/
+    2D-TAN-64x64-K9L4-pool-sw-0.5bias-nms-con-match.yaml): window
+    NUM_SAMPLE_CLIPS=128 @0.2 s CLIP features, TARGET_STRIDE=2 frame
+    avg-pooling -> 64x64 map."""
+    return ConeConfig(
+        # adapter off end to end: MODEL.ADAPTER defaults to '' and the yaml
+        # sets ADAPTER_LOSS: False (the coarse stage ranks raw features)
+        model=ModelConfig(model_family="tan", adapter_module="none",
+                          t_feat_dim=512, v_motion_feat_dim=512,
+                          v_appear_feat_dim=512),
+        loss=LossConfig(adapter_loss=False),
+        data=DataConfig(
+            dset_name="mad", max_v_l=128, clip_length=0.2, topk_window=30,
+            max_ctx_l=65536,
+        ),
+        train=TrainConfig(n_epoch=8, bsz=32, lr=1e-4, wd=0.0),
+        tan=TanConfig(num_clips=64, v_feat_dim=512, t_feat_dim=512,
+                      txt_hidden_size=256, frame_kernel=2, frame_stride=2,
+                      adapter_module="none"),
     )

@@ -5,7 +5,8 @@
            (eval.use_pallas_coarse) or the plain matmul + segment max
            ranklist = stable descending argsort of the window scores
   fine:    gather the top-K windows of every query of a chunk and run ONE
-           Moment-DETR forward over all of them
+           Moment-DETR forward over all of them (the 2D-TAN family's score
+           map fine stage is eval/tan_pipeline.py; make_pipeline picks it)
   post:    the reference-exact host path (decimal rounding, dict dedup,
            numpy NMS) or the batched device path (fusion + dedup + NMS)
 
@@ -90,10 +91,6 @@ class InferencePipeline:
 
     def __init__(self, model: ConeModel, dataset: GroundingDataset,
                  cfg: ConeConfig, device="cuda"):
-        if cfg.model.model_family != "cone":
-            raise NotImplementedError(
-                f"model_family={cfg.model.model_family!r}: the port runs the CONE "
-                "family only (2D-TAN is ROADMAP Queue 1 item 10)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.ds = dataset
@@ -113,9 +110,14 @@ class InferencePipeline:
         x = x.float()
         return x if scale is None else x * scale
 
+    def _adapter_on(self) -> bool:
+        """The family's own adapter knob; a subclass with another head
+        overrides it."""
+        return self.cfg.model.adapter_module == "linear"
+
     def _adapt(self, feats):
         """Adapter + renormalize for the coarse stage (cone/inference.py:254-258)."""
-        if self.cfg.model.adapter_module != "linear":
+        if not self._adapter_on():
             return feats
         out = self.model.adapt(feats)
         norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
@@ -144,7 +146,9 @@ class InferencePipeline:
         appear/motion (B, L, D*), ctx (B,), win_idx (B, Qc, K), toks
         (B, Qc, Lq, Dt), tmask (B, Qc, Lq), cls (B, Qc, D). Returns per
         (B, Qc, K, NQ): proposal spans in seconds ((cxw->xx) * window_len +
-        window_start) * clip_length, fg probabilities, matching scores."""
+        window_start) * clip_length, fg probabilities, matching scores. A
+        family whose fine stage can leave a candidate slot empty (2D-TAN's
+        within-window NMS) returns a 4th (B, Qc, K, NQ) bool: cand_valid."""
         cfg = self.cfg
         max_v_l = cfg.data.max_v_l
         b, qc, k = win_idx.shape
@@ -171,7 +175,8 @@ class InferencePipeline:
         """The whole path for a group of (video, query-chunk) items: decode
         -> adapter -> coarse ranking -> top-K gather -> fine forward ->
         4-dp rounding -> min-max fusion -> dedup -> NMS of the three
-        modalities stacked on one batch. Returns (order, win_valid,
+        modalities stacked on one batch; a fine stage's cand_valid masks
+        its empty slots. Returns (order, win_valid,
         kept_spans (3, B, Qc, K, 2), kept_scores (3, B, Qc, K),
         kept_valid (3, B, Qc, K))."""
         cfg = self.cfg
@@ -183,7 +188,9 @@ class InferencePipeline:
         win_idx = order[..., : cfg.data.topk_window]
         win_valid = win_idx < n_valid[..., None]  # ranked ids < n_win
         win_idx = torch.where(win_valid, win_idx, 0)
-        spans_sec, prob, match = self._fine(appear, motion, ctx, win_idx, toks, tmask, cls)
+        spans_sec, prob, match, *rest = self._fine(appear, motion, ctx, win_idx, toks,
+                                                   tmask, cls)
+        cand_valid = rest[0] if rest else None
         b, qc, k, p = prob.shape
         if not cfg.eval.no_sort_results:
             # the host candidate order: fg-prob descending within each window
@@ -192,7 +199,11 @@ class InferencePipeline:
             spans_sec = _take(spans_sec, ordp, -2)
             prob = torch.gather(prob, -1, ordp)
             match = torch.gather(match, -1, ordp)
+            if cand_valid is not None:
+                cand_valid = torch.gather(cand_valid, -1, ordp)
         valid = win_valid.repeat_interleave(p, dim=-1)  # (B, Qc, K*P)
+        if cand_valid is not None:
+            valid = valid & cand_valid.reshape(b, qc, k * p)
         sp = round4_device(spans_sec.reshape(b, qc, k * p, 2))
         pr = round4_device(prob.reshape(b, qc, k * p))
         ma = round4_device(match.reshape(b, qc, k * p))
@@ -454,11 +465,12 @@ class InferencePipeline:
             got = self._fine(ap, mo, ctx, win_idx, toks, tmask, clss)
             pending.append((chunk, win_valid, tuple(x[0] for x in got)))
         rows = []
-        for (chunk, win_valid, _), (spans_sec, prob, match) in zip(
+        for (chunk, win_valid, _), (spans_sec, prob, match, *rest) in zip(
                 pending, _fetch([g for _, _, g in pending])):
             for j, ex in enumerate(chunk):
                 rows.append(dict(example=ex, spans_sec=spans_sec[j], prob=prob[j],
-                                 match=match[j], win_valid=win_valid[j]))
+                                 match=match[j], win_valid=win_valid[j],
+                                 cand_valid=rest[0][j] if rest else None))
         return rows
 
     # ------------------------------------------------------ post-processing
@@ -467,15 +479,18 @@ class InferencePipeline:
         """One query's (K, NQ) grid as the reference's candidate list:
         windows in ranklist order, proposals by fg prob inside each window
         (unless eval.no_sort_results), values rounded to 4 dp
-        (cone/inference.py:70-91)."""
+        (cone/inference.py:70-91). Empty candidate slots (cand_valid) are
+        left out."""
         sort_results = not self.cfg.eval.no_sort_results
+        cand_valid = row.get("cand_valid")
         cands = []
         for w in range(row["spans_sec"].shape[0]):
             if not row["win_valid"][w]:
                 continue
             sec = row["spans_sec"][w]
             entries = [[float(sec[q, 0]), float(sec[q, 1]), float(row["prob"][w, q]),
-                        float(row["match"][w, q])] for q in range(sec.shape[0])]
+                        float(row["match"][w, q])] for q in range(sec.shape[0])
+                       if cand_valid is None or cand_valid[w, q]]
             if sort_results:
                 entries.sort(key=lambda e: e[2], reverse=True)
             cands.extend([[float(f"{v:.4f}") for v in e] for e in entries])
@@ -517,16 +532,22 @@ class InferencePipeline:
         spans, props, matches, valids, exs = [], [], [], [], []
         for row in rows:
             sec, prob, match = row["spans_sec"], row["prob"], row["match"]
+            cand_valid = row.get("cand_valid")
             if sort_results:
                 ordp = np.argsort(-prob, axis=-1, kind="stable")
                 sec = np.take_along_axis(sec, ordp[..., None], axis=-2)
                 prob = np.take_along_axis(prob, ordp, axis=-1)
                 match = np.take_along_axis(match, ordp, axis=-1)
+                if cand_valid is not None:
+                    cand_valid = np.take_along_axis(cand_valid, ordp, axis=-1)
             k, nq = prob.shape
             spans.append(np.round(sec, 4).reshape(k * nq, 2))
             props.append(np.round(prob.reshape(-1), 4))
             matches.append(np.round(match.reshape(-1), 4))
-            valids.append(np.repeat(row["win_valid"], nq))
+            valid = np.repeat(row["win_valid"], nq)
+            if cand_valid is not None:
+                valid = valid & cand_valid.reshape(-1)
+            valids.append(valid)
             exs.append(row["example"])
         ((o_spans, o_scores, o_valid),) = _fetch([self._device_post(
             *(self._to_device(np.stack(x)) for x in (spans, props, matches, valids)))])
@@ -555,10 +576,13 @@ class InferencePipeline:
 
 
 def make_pipeline(model, dataset, cfg: ConeConfig, device="cuda"):
-    """Family-dispatching constructor: the CONE pipeline; the 2D-TAN family
-    is not ported yet (ROADMAP Queue 1 item 10)."""
+    """Family-dispatching constructor: the CONE pipeline, or the 2D-TAN one
+    (its own fine stage: score-map cells + within-window NMS) when
+    cfg.model.model_family == "tan". The train loop and every serving
+    surface build through it, so a TAN workdir serves like a CONE one."""
     if cfg.model.model_family == "tan":
-        raise NotImplementedError(
-            "2D-TAN inference is not ported yet: ROADMAP Queue 1 item 10 "
-            "(2D-TAN family)")
+        from cone_tpu_torch.eval.tan_pipeline import TanInferencePipeline
+
+        return TanInferencePipeline(model, dataset, cfg, cfg.tan,
+                                    proposal_top_k=cfg.tan.proposal_top_k, device=device)
     return InferencePipeline(model, dataset, cfg, device=device)

@@ -2,8 +2,7 @@
 scores built on it (cone/model.py:130-210), as batched matmuls.
 
 The pooled sums must be true fp32: on the card that needs TF32 off for
-matmuls, which is PyTorch's default (torch.backends.cuda.matmul.allow_tf32
-is False unless a caller turns it on).
+matmuls, which utils/device.resolve_device sees to.
 """
 
 from __future__ import annotations

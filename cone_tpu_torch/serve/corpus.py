@@ -90,7 +90,7 @@ class CorpusRetriever:
     def _stacked_scores(self, A, S, ctx, clss):
         """(V, Lb, D) encoded corpus + scales + (V,) ctx + (Q, D) query CLS
         batch -> (V, Q, n_w) window scores: the pipeline's own decode +
-        adapter + renormalize, one batched product over the whole stacked
+        adapter (gated on the family's knob) + renormalize, one batched product over the whole stacked
         bucket, and the per-window max. Any number of queries rides the
         same pass over the corpus. The (V, Q, Lb) frame scores live only
         inside this call."""
@@ -424,10 +424,15 @@ class CorpusRetriever:
 
         # stage 4: reference-semantics post-processing, per query
         rows: List[List[list]] = [[] for _ in range(nq)]
-        for (cid, grp, _), (spans_sec, prob, match) in zip(fine_pend, fine_res):
+        for (cid, grp, _), (spans_sec, prob, match, *rest) in zip(fine_pend, fine_res):
+            # a fine stage with empty candidate slots (2D-TAN's within-window
+            # NMS) marks them in a 4th output; they are no candidates
+            cand_valid = rest[0] if rest else None
             for j, (qi, wins) in enumerate(grp):
                 for w in range(len(wins)):
                     for p in range(prob.shape[2]):
+                        if cand_valid is not None and not cand_valid[j, w, p]:
+                            continue
                         rows[qi].append(
                             [cid, float(f"{spans_sec[j, w, p, 0]:.4f}"),
                              float(f"{spans_sec[j, w, p, 1]:.4f}"),

@@ -35,26 +35,40 @@ COARSE_SHAPES = {  # label: (B, Q, L, D, stride, ctx_l, timed calls)
     "ego4d": (1, 32, 2304, 256, 45, 2243, 500),
     "mad": (1, 32, 36864, 512, 62, 36000, 100),
 }
+PROFILER_SESSIONS = 3   # fresh torch.profiler sessions tried per device-time read
 
 
-def kernel_device_us(fn, kernel_name: str, launches: int = 20) -> float:
+def kernel_device_us(fn, kernel_name: str, launches: int = 20) -> float | None:
     """Device time per launch, in microseconds, of the kernels whose name
     contains `kernel_name`, from torch.profiler over `launches` calls of
-    `fn`. Raises if the profiler saw no such kernel."""
+    `fn`. Now and then a profiler session records none of the kernel's
+    launches (the CUPTI trace comes back without them; the kernel ran): up
+    to PROFILER_SESSIONS fresh sessions are tried, and None (not measured)
+    is returned if none saw the kernel. A device time is a measurement, not
+    a check: whether the kernel ran and agrees is held elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if kernel_name in e.key]
-    if not ev:
-        raise RuntimeError(f"profiler recorded no {kernel_name} launch")
-    total = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                for e in ev)
-    return total / sum(e.count for e in ev)
+    for attempt in range(1, PROFILER_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if kernel_name in e.key]
+        if ev:
+            total = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                        for e in ev)
+            return total / sum(e.count for e in ev)
+        print(f"torch.profiler session {attempt} of {PROFILER_SESSIONS} recorded no "
+              f"{kernel_name} launch", flush=True)
+    print(f"torch.profiler recorded no {kernel_name} launch in {PROFILER_SESSIONS} sessions: "
+          f"device time not measured", flush=True)
+    return None
+
+
+def fmt_us(us: float | None) -> str:
+    return "not measured" if us is None else f"{us:.2f}us"
 
 
 def coarse_inputs(b, q, l_pad, d, ctx, seed):

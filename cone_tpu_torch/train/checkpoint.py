@@ -9,11 +9,16 @@ and `model_<tag>.ckpt`, a torch file under the reference's parameter names
     {"model": state_dict, "optimizer": AdamW state, "lr_scheduler": ...,
      "epoch": n, "extra": {"best_score": ..., "es_cnt": ...}}
 
-`tools/convert_ckpt.py --export` writes the same file from a JAX workdir.
+`tools/convert_ckpt.py --export` writes the same file from a JAX workdir
+of the CONE family. A 2D-TAN workdir holds CONE_TAN names; its weights
+load from the port's own `train` or from a reference CONE_TAN state dict
+(`module.` prefixes and the golden fixtures' compact names taken too).
 Tags follow the reference's three flavours (cone/train.py:181-223): `best`
 on a stop-score improvement, `latest` at every eval, periodic `e{NNNN}`.
 `extra` carries the early-stop counters, so a resumed run does not re-arm
-a fresh patience window.
+a fresh patience window, and for 2D-TAN the plateau controller's
+`plateau_best` and `plateau_num_bad` (its only copy: a TAN checkpoint has
+no "lr_scheduler").
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from typing import Dict, Optional
 import torch
 
 from cone_tpu_torch.config import ConeConfig
-from cone_tpu_torch.convert import load_reference_state_dict
+from cone_tpu_torch.convert import load_reference_state_dict, load_reference_tan_state_dict
+from cone_tpu_torch.models.tan import ConeTanModel
 
 
 def load_config(workdir: str) -> ConeConfig:
@@ -37,6 +43,13 @@ def checkpoint_path(workdir: str, tag: str) -> str:
 
 def _read(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _load_weights(model: torch.nn.Module, raw) -> None:
+    """Strict load of a reference-named file into a model of either family."""
+    tan = isinstance(model, ConeTanModel)
+    model.load_state_dict((load_reference_tan_state_dict if tan
+                           else load_reference_state_dict)(raw))
 
 
 def load_model(workdir: str, tag: str = "best", device="cuda", cfg: ConeConfig = None):
@@ -54,7 +67,7 @@ def load_model(workdir: str, tag: str = "best", device="cuda", cfg: ConeConfig =
             f"--workdir <workdir> --ckpt {tag} --out {path}")
     raw = _read(path)
     model = build_family(cfg, seed=0, device=device)
-    model.load_state_dict(load_reference_state_dict(raw))
+    _load_weights(model, raw)
     epoch = int(raw["epoch"]) if isinstance(raw, dict) and "epoch" in raw else 0
     return model.eval(), epoch
 
@@ -65,7 +78,7 @@ def load_params(path: str, model: torch.nn.Module) -> None:
     tools/convert_ckpt.py --export) into `model` (strict). Optimizer and
     epoch state in the file are ignored (the reference's --resume without
     --resume_all, cone/config.py:63-66)."""
-    model.load_state_dict(load_reference_state_dict(_read(path)))
+    _load_weights(model, _read(path))
 
 
 class CheckpointManager:
@@ -99,7 +112,7 @@ class CheckpointManager:
         where given and saved); returns (epoch, extra), extra {} for files
         written without one."""
         raw = _read(checkpoint_path(self.workdir, tag))
-        model.load_state_dict(load_reference_state_dict(raw))
+        _load_weights(model, raw)
         if optimizer is not None and "optimizer" in raw:
             optimizer.load_state_dict(raw["optimizer"])
         if scheduler is not None and "lr_scheduler" in raw:

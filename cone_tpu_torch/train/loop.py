@@ -7,9 +7,11 @@ evaluation, which the inference entry points share.
 The stop score is the mean of the R@1 row, at IoU {0.3, 0.5} for Ego4D and
 {0.1, 0.3, 0.5} for MAD (cone/train.py:174-179).
 
-Single process on one device. Not ported yet, each raising where it would
-be asked for: the 2D-TAN family (ROADMAP Queue 1 item 10), data and tensor
-parallel training (item 11) and the multiscale loader (item 14).
+Both families: CONE (AdamW with a step lr decay, train/step.py) and
+2D-TAN (Adam with a plateau-controlled lr, train/tan_step.py), picked by
+model.model_family. Single process on one device. Not ported yet, each
+raising where it would be asked for: data and tensor parallel training
+(ROADMAP Queue 1 item 11) and the multiscale loader (item 14, CONE-only).
 `train.rng_impl` chooses a JAX PRNG and has no counterpart here: dropout
 draws from torch's generator, seeded from train.seed.
 """
@@ -28,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cone_tpu_torch.config import ConeConfig
+from cone_tpu_torch.config import ConeConfig, check_tan_geometry
 from cone_tpu_torch.data.dataset import GroundingDataset, TrainLoader
 from cone_tpu_torch.data.prefetch import prefetch_iterator
 from cone_tpu_torch.eval.metrics import (
@@ -40,14 +42,16 @@ from cone_tpu_torch.eval.metrics import (
 )
 from cone_tpu_torch.eval.pipeline import make_pipeline
 from cone_tpu_torch.models.cone import ConeModel
+from cone_tpu_torch.models.tan import ConeTanModel
 from cone_tpu_torch.train.checkpoint import CheckpointManager, load_params
-from cone_tpu_torch.train.optim import make_optimizer
+from cone_tpu_torch.train.optim import make_optimizer, make_tan_optimizer
 from cone_tpu_torch.train.step import (
     batch_to_device,
     make_eval_loss_step,
     make_train_step,
     to_floats,
 )
+from cone_tpu_torch.train.tan_step import make_tan_eval_loss_step, make_tan_train_step
 from cone_tpu_torch.utils.device import resolve_device
 from cone_tpu_torch.utils.io import AverageMeter, save_jsonl
 from cone_tpu_torch.utils.logging import MetricLogger
@@ -65,13 +69,13 @@ def build_family(cfg: ConeConfig, seed: int, device="cuda"):
     """A freshly initialised model of the configured family on `device`.
     The initialisation draws from `seed` and leaves the global generators
     untouched."""
-    if cfg.model.model_family == "tan":
-        raise NotImplementedError(
-            "the 2D-TAN family is not ported yet: ROADMAP Queue 1 item 10")
     dev = resolve_device(device)
+    tan = cfg.model.model_family == "tan"
+    if tan:
+        check_tan_geometry(cfg.tan, cfg.data.max_v_l)
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
-        return ConeModel(cfg.model, device=dev)
+        return ConeTanModel(cfg.tan, device=dev) if tan else ConeModel(cfg.model, device=dev)
 
 
 def evaluate(model, eval_ds: GroundingDataset, cfg: ConeConfig,
@@ -182,8 +186,9 @@ def device_seconds(events) -> float:
 
 def _check_supported(cfg: ConeConfig) -> None:
     if cfg.model.model_family == "tan":
-        raise NotImplementedError(
-            "training the 2D-TAN family is not ported yet: ROADMAP Queue 1 item 10")
+        check_tan_geometry(cfg.tan, cfg.data.max_v_l)
+    if cfg.train.multiscale and cfg.model.model_family == "tan":
+        raise ValueError("train.multiscale is CONE-only")
     if cfg.train.multiscale:
         raise NotImplementedError(
             "train.multiscale (the multiscale loader) is not ported yet: "
@@ -197,11 +202,13 @@ def _check_supported(cfg: ConeConfig) -> None:
 def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[GroundingDataset],
           workdir: str, profile: bool = False, init_ckpt: Optional[str] = None,
           device="cuda", tensorboard: bool = False):
-    """Train a CONE model on one device; returns (model, history), one
-    record per epoch.
+    """Train a model of the configured family on one device; returns
+    (model, history), one record per epoch.
 
     A workdir that holds a `latest` checkpoint resumes from it: weights,
-    optimizer and lr schedule, epoch and the early-stop counters.
+    optimizer and lr schedule (the TAN plateau controller's best score and
+    bad-eval count, from the checkpoint's extra state), epoch and the
+    early-stop counters.
     init_ckpt: weights-only warm start from a reference-named torch file
     (the reference's --resume without --resume_all, cone/config.py:63-66),
     ignored when the run resumes. profile: trace the first epoch with
@@ -225,10 +232,23 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     loader = TrainLoader(train_ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
     if loader.steps_per_epoch() == 0:
         raise ValueError(f"{len(train_ds)} training examples make no batch of {cfg.train.bsz}")
-    optimizer, scheduler = make_optimizer(model, cfg.train, loader.steps_per_epoch())
-    step_fn = make_train_step(model, optimizer, scheduler, cfg)
-    eval_loss_fn = (make_eval_loss_step(model, cfg)
-                    if eval_ds is not None and cfg.eval.criterion_losses else None)
+    tan = cfg.model.model_family == "tan"
+    plateau = None
+    if tan:
+        # Adam + ReduceLROnPlateau on the stop score
+        # (cone_2dtan/moment_localization/train.py:143-147)
+        optimizer, plateau = make_tan_optimizer(model, cfg.train)
+        scheduler = None   # the plateau's state travels in `extra`, as cone_tpu's does
+        step_fn = make_tan_train_step(model, optimizer, cfg.tan, cfg.loss.neg_loss,
+                                      cfg.loss.adapter_loss_coef)
+    else:
+        optimizer, scheduler = make_optimizer(model, cfg.train, loader.steps_per_epoch())
+        step_fn = make_train_step(model, optimizer, scheduler, cfg)
+    eval_loss_fn = None
+    if eval_ds is not None and cfg.eval.criterion_losses:
+        eval_loss_fn = (make_tan_eval_loss_step(model, cfg.tan, cfg.loss.neg_loss,
+                                                cfg.loss.adapter_loss_coef)
+                        if tan else make_eval_loss_step(model, cfg))
 
     start_epoch, best_score, es_cnt = 0, 0.0, 0
     if ckpt.exists("latest"):
@@ -236,11 +256,16 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
         start_epoch = epoch + 1
         best_score = extra.get("best_score", 0.0)
         es_cnt = int(extra.get("es_cnt", 0))
+        if plateau is not None:   # its lr came back with the optimizer's state
+            plateau.best = extra["plateau_best"]
+            plateau.num_bad_epochs = int(extra["plateau_num_bad"])
         print(f"resumed from epoch {start_epoch}")
 
     def save(tag, epoch):
-        ckpt.save(tag, model, optimizer, scheduler, epoch,
-                  extra={"best_score": best_score, "es_cnt": es_cnt})
+        extra = {"best_score": best_score, "es_cnt": es_cnt}
+        if plateau is not None:
+            extra.update(plateau_best=plateau.best, plateau_num_bad=plateau.num_bad_epochs)
+        ckpt.save(tag, model, optimizer, scheduler, epoch, extra=extra)
 
     history = []
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
@@ -305,10 +330,14 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
                 if eval_loss_fn is not None:
                     eval_losses = eval_criterion_losses(eval_loss_fn, eval_ds, cfg, adapter_on)
                     epoch_log.update({f"eval_{k}": v for k, v in eval_losses.items()})
+                lr_now = None
+                if plateau is not None:
+                    plateau.step(score)
+                    lr_now = epoch_log["lr"] = optimizer.param_groups[0]["lr"]
                 epoch_log["eval_seconds"] = time.time() - t0
                 for t in res["tables"].values():
                     logger.log_text(t)
-                logger.log_eval(epoch + 1, score, losses=eval_losses)
+                logger.log_eval(epoch + 1, score, lr=lr_now, losses=eval_losses)
                 save_jsonl(res["submissions"]["fusion"],
                            os.path.join(workdir, "latest_preds.jsonl"))
                 if score > best_score:

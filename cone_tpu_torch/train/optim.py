@@ -1,11 +1,16 @@
-"""Optimizer: AdamW with a reduced-lr adapter group and a step lr decay.
+"""Optimizers of both families.
 
-The reference's setup (cone/inference.py:511-523): AdamW at lr 1e-4 and
+CONE: AdamW with a reduced-lr adapter group and a step lr decay. The
+reference's setup (cone/inference.py:511-523): AdamW at lr 1e-4 and
 weight decay 1e-4 on every parameter, the adapter's parameters at
 lr * coef_lr, and a StepLR that multiplies the lr by 0.1 every `lr_drop`
 epochs, here counted per optimizer step as the JAX package's `step_lr`
 does. Gradients are clipped to a global norm of `grad_clip` before the
 update (cone/train.py:87-88), in the train step.
+
+2D-TAN: Adam with its L2 weight decay and a ReduceLROnPlateau on the eval
+stop score (cone_2dtan/moment_localization/train.py:143-147), gradients
+clipped to a global norm of 10 in the train step (train/tan_step.py).
 """
 
 from __future__ import annotations
@@ -35,3 +40,24 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: in
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: step_lr_factor(step, cfg.lr_drop, steps_per_epoch))
     return opt, sched
+
+
+def make_tan_optimizer(model: torch.nn.Module, cfg: TrainConfig):
+    """(Adam, ReduceLROnPlateau) for the TAN family.
+
+    The reference's Adam(lr, betas=(0.9, 0.999), weight_decay): L2 decay
+    added to the (already clipped) gradient before the moments, not
+    AdamW's decoupled decay; the lr falls by `plateau_factor` after more
+    than `plateau_patience` evals whose stop score did not rise by more
+    than 1e-4 relative (torch's rel-mode max; lib/core/config.py:75-76).
+    Like the reference, Adam skips a parameter without a gradient in a step
+    (the adapter before start_epoch_for_adapter), where the JAX package's
+    optax Adam advances its step count for every parameter. The
+    scheduler's `best` and `num_bad_epochs` travel in the checkpoints'
+    extra state (train/loop.py), its lr in the optimizer's."""
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
+                           weight_decay=cfg.wd)
+    plateau = torch.optim.lr_scheduler.ReduceLROnPlateau(
+        opt, mode="max", factor=cfg.plateau_factor, patience=cfg.plateau_patience,
+        threshold=1e-4, threshold_mode="rel")
+    return opt, plateau

@@ -8,12 +8,20 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """`device` as a torch.device. The entry points default to "cuda" and
     run on the CPU only when the caller asks for it: a CUDA device without
-    a card raises here instead of carrying on elsewhere."""
+    a card raises here instead of carrying on elsewhere.
+
+    On the card it also switches TF32 off in cuDNN and cuBLAS for the
+    process: PyTorch lets cuDNN's convolutions and RNNs compute in TF32 by
+    default (about three decimal digits), and the port computes in float32,
+    as cone_tpu and the reference fixtures do."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run on the CPU")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     return dev
 
 

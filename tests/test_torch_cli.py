@@ -8,6 +8,7 @@ moments within spans atol 1e-3 / scores atol 2e-3, equal file names, equal
 metric tables.
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -238,8 +239,10 @@ def test_checkpoint_and_evaluate_api(workdir):
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
                                                  b.state_dict().values()))
     tan = cfg.replace(model=ModelConfig(model_family="tan"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="TAN geometry"):   # 64 map cells in another window
         build_family(tan, seed=0, device="cpu")
+    tan = tan.replace(data=dataclasses.replace(tan.data, max_v_l=64))
+    assert type(build_family(tan, seed=0, device="meta")).__name__ == "ConeTanModel"
 
 
 def test_what_waits_raises_and_names_its_roadmap_item(workdir):
@@ -248,8 +251,8 @@ def test_what_waits_raises_and_names_its_roadmap_item(workdir):
                 "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         t_cli._open_store(str(workdir["root"] / "features"))  # an LMDB directory
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d"])  # 2D-TAN waits
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):   # 2D-TAN on a mesh waits
+        t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d", "--mesh"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):  # the default device is the card
             t_main(["infer", "--workdir", workdir["run"]])

@@ -55,6 +55,29 @@ def test_plain_matches_pallas_interpret(rng, ctx_l, stride):
     assert (want[:, n_valid:n_seg] <= pc.NEG_INF / 2).all()
 
 
+@pytest.mark.parametrize("ctx_l,stride,d,q", [
+    (2241, 32, 256, 8),    # Ego4D-TAN: max_v_l 64; segments of two 16-frame tiles
+    (4000, 64, 512, 32),   # TAN-MAD: max_v_l 128; segments of four tiles
+    (64, 32, 64, 8),       # ctx_l ends exactly on a segment and a tile edge
+])
+def test_plain_matches_pallas_interpret_at_the_tan_strides(rng, ctx_l, stride, d, q):
+    """The 2D-TAN presets' coarse strides, which (unlike 45 and 62) are
+    multiples of the kernel's 16-frame tiles: every segment ends on a tile
+    edge."""
+    feats, cls = _inputs(rng, ctx_l, stride, d=d, q=q, extra_seg=1)
+    got = _plain(feats, cls, ctx_l, stride)
+    want = np.asarray(pc.coarse_segment_max.__wrapped__(
+        jnp.asarray(feats), jnp.asarray(cls), jnp.asarray(ctx_l), stride))
+    n_valid = -(-ctx_l // stride)
+    assert got.shape == (q, -(-feats.shape[0] // stride))
+    np.testing.assert_allclose(got[:, :n_valid], want[:, :n_valid], rtol=1e-5)
+    assert (got[:, n_valid:] <= co.NEG_INF / 2).all()
+    # each segment's max is the max over its own frames of the scores
+    scores = cls @ feats[:ctx_l].T
+    seg = [scores[:, i * stride : min((i + 1) * stride, ctx_l)].max(-1) for i in range(n_valid)]
+    np.testing.assert_allclose(got[:, :n_valid], np.stack(seg, -1), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("ctx_l,stride", [(700, 45), (30, 45), (496, 62)])
 def test_window_combine_matches_jax(rng, ctx_l, stride):
     feats, cls = _inputs(rng, ctx_l, stride, d=32, extra_seg=2)
@@ -131,6 +154,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
     ("ctx<stride", 90, 45, 2, 1, (2, 2)),
     ("one-segment", 40, 45, 1, 1, (1, 1)),
     ("long-batch", 36864, 62, 3, 14, (43, 3)),
+    ("ego4d-tan", 2304, 32, 1, 1, (72, 1)),          # 72 segments of 32 frames
+    ("ego4d-tan-video-batch", 2304, 32, 2, 2, (36, 2)),
+    ("tan-mad", 36864, 64, 1, 5, (116, 1)),          # 576 segments: runs of 5 = 20 tiles
 ])
 def test_launch_plan(label, l_pad, stride, b, spb, grid):
     n_seg = -(-l_pad // stride)
@@ -160,6 +186,10 @@ def test_launch_plan_follows_the_card():
     ("q40-short-run", 40, 64, 520, 45, 1, 1, 16),  # 3 x 5 items on 16 warps
     ("q100", 100, 64, 520, 62, 3, 16, 8),
     ("q128-stride7", 128, 100, 4000, 7, 40, 16, 8),
+    # the 2D-TAN strides: a block's run is a whole number of 16-frame tiles
+    ("ego4d-tan-q8", 8, 256, 2304, 32, 1, 1, 16),
+    ("ego4d-tan-q32", 32, 256, 2304, 32, 1, 1, 16),   # 2 frame tiles x 4 query tiles
+    ("tan-mad", 32, 512, 36864, 64, 5, 4, 16),        # 20 frame tiles a block
 ])
 def test_kernel_layout(label, q, d, l_pad, stride, spb, ntw, warps):
     lay = co.layout(q, d, l_pad, stride, spb)
@@ -215,3 +245,39 @@ def test_tf32_rounding_and_split():
     assert ((hi + lo) - x).abs().max() <= 2.0 ** -21 * x.abs().max()
     with pytest.raises(TypeError):
         tf32.round_tf32(x.double())
+
+
+@pytest.mark.parametrize("seen_on, want", [(1, 7.5), (3, 7.5), (None, None)])
+def test_device_time_read_retries_a_session_that_missed_the_kernel(monkeypatch, seen_on, want):
+    # a profiler session whose trace lacks the kernel is tried again; when
+    # every session misses it the device time is "not measured", not an error
+    import torch.profiler
+
+    from cone_tpu_torch.tools import bench_kernels
+
+    sessions = []
+
+    class Evt:
+        key, count, self_device_time_total = "coarse_segment_max_kernel<1>", 20, 150.0
+
+    class FakeProfile:
+        def __init__(self, activities):
+            sessions.append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [Evt()] if len(sessions) == seen_on else []
+
+    calls = []
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    got = bench_kernels.kernel_device_us(lambda: calls.append(1), "coarse_segment_max_kernel")
+    assert got == want
+    assert len(sessions) == (seen_on or bench_kernels.PROFILER_SESSIONS)
+    assert len(calls) == 1 + 20 * len(sessions)
+    assert bench_kernels.fmt_us(got) == ("not measured" if want is None else "7.50us")

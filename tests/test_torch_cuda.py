@@ -1,7 +1,8 @@
 """The port's CUDA kernels (coarse segment max, masked attention) on the
-card, each against its plain PyTorch version, and the training step on the
+card, each against its plain PyTorch version, the training step on the
 card (against the same step on the CPU, and the reference's golden
-trajectory). Marked `cuda`: without a card every test here skips. The file
+trajectories), and the 2D-TAN model's float32 guarantee and tie order on
+the card. Marked `cuda`: without a card every test here skips. The file
 imports neither jax nor cone_tpu, so it runs on a machine with PyTorch
 alone, without the JAX-side conftest:
 
@@ -16,7 +17,7 @@ import torch
 
 from cone_tpu_torch.ops import attention as at
 from cone_tpu_torch.ops import coarse as co
-from cone_tpu_torch.tools import bench_attn, golden_train
+from cone_tpu_torch.tools import bench_attn, golden_tan_train, golden_train
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +250,83 @@ def test_train_step_on_the_card_equals_the_cpu(card):
         assert abs(m_gpu[k] - v) <= 1e-4 * max(1.0, abs(v)), (k, m_gpu[k], v)
     for k, v in w_cpu.items():
         assert float((w_gpu[k] - v).abs().max()) <= cfg.train.lr, k
+
+
+@pytest.mark.parametrize("ctx,q,d,stride,l_pad,spb", [
+    ([2241], 8, 256, 32, 2304, None),      # Ego4D-TAN: a block per 32-frame segment
+    ([2241], 32, 256, 32, 2304, None),
+    ([2304, 2240], 32, 256, 32, 2304, None),  # video batch; ctx_l on a segment edge
+    ([36000], 32, 512, 64, 36864, None),   # TAN-MAD: runs of 5 segments = 20 tiles
+    ([64 * 7], 32, 512, 64, 1024, 7),      # a run ends at ctx_l, on a tile edge
+    ([64 * 7 - 16], 32, 512, 64, 1024, 3),  # ... one tile short of a segment edge
+    ([64, 31], 8, 64, 32, 64, 1),          # the whole video is two segments
+])
+def test_coarse_kernel_at_the_tan_strides(card, ctx, q, d, stride, l_pad, spb):
+    """Strides 32 and 64 are multiples of the kernel's 16-frame tiles, so
+    every segment ends on a tile edge and a block's run is whole tiles."""
+    _coarse_against_plain(card, ctx, q, d, stride, l_pad, spb)
+
+
+def test_tan_forward_is_float32_on_the_card_whatever_the_tf32_flags(card):
+    """The TAN head's 9x9 convs and LSTM at 128 channels on a 64x64 map,
+    with cuDNN's and cuBLAS's TF32 switched ON before the model is built:
+    building it on the card resolves the device, which switches both off,
+    and the forward lies within 2e-4 of the CPU. The same forward with TF32
+    forced back on is printed beside it."""
+    from cone_tpu_torch.config import TanConfig
+    from cone_tpu_torch.convert import load_reference_tan_state_dict, random_reference_tan_state_dict
+    from cone_tpu_torch.models.tan import ConeTanModel
+
+    cfg = TanConfig(hidden_size=128, txt_hidden_size=128, map_hidden_sizes=(128,) * 4)
+    sd = load_reference_tan_state_dict(random_reference_tan_state_dict(cfg, seed=0))
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.normal(size=(2, 12, cfg.t_feat_dim)).astype(np.float32))
+    mask = torch.ones(2, 12)
+    mask[1, 7:] = 0
+    vis = torch.from_numpy(rng.normal(size=(2, 64, cfg.v_feat_dim)).astype(np.float32))
+    vis = vis / vis.norm(dim=-1, keepdim=True)
+    cpu = ConeTanModel(cfg, device="cpu")
+    cpu.load_state_dict(sd)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gpu = ConeTanModel(cfg, device="cuda")
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        gpu.load_state_dict(sd)
+        with torch.no_grad():
+            want, _ = cpu(tok, mask, vis)
+            inputs = (tok.cuda(), mask.cuda(), vis.cuda())
+            got, _ = gpu(*inputs)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32, _ = gpu(*inputs)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert float(want.std()) > 0.05   # a map with spread, not the prediction bias
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
+    print(f"TAN forward vs the CPU: float32 {float((got.cpu() - want).abs().max()):.2e}, "
+          f"TF32 {float((tf32.cpu() - want).abs().max()):.2e}")
+
+
+def test_tan_tie_order_on_the_card(card):
+    """top_k_ref_order: equal scores rank the highest flat cell first on the
+    card too, where torch.topk promises no order among ties."""
+    from cone_tpu_torch.eval.tan_pipeline import top_k_ref_order
+
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 4, size=(160, 4096)).astype(np.float32) / 4   # ties everywhere
+    vals, idx = top_k_ref_order(torch.from_numpy(x).cuda(), 128)
+    ref = np.argsort(x, axis=-1, kind="stable")[:, ::-1][:, :128]
+    np.testing.assert_array_equal(idx.cpu().numpy(), ref)
+    np.testing.assert_array_equal(vals.cpu().numpy(), np.take_along_axis(x, ref, -1))
+
+
+def test_golden_tan_train_trajectory_on_the_card(card):
+    """tests/golden/tan_train_trajectory.npz replayed on the card within
+    tests/test_tan_train_parity.py's limits and the update limit
+    (golden_tan_train.LIMITS)."""
+    worst = golden_tan_train.check(device="cuda")
+    print(f"golden TAN trajectory on the card, worst errors: {worst}")

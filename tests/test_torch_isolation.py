@@ -30,7 +30,9 @@ NEW_MODULES = [
     "cone_tpu_torch.tools.bench_attn", "cone_tpu_torch.train.checkpoint",
     "cone_tpu_torch.train.loop", "cone_tpu_torch.ops.matching",
     "cone_tpu_torch.models.losses", "cone_tpu_torch.train.optim",
-    "cone_tpu_torch.train.step", "cone_tpu_torch.utils.logging"]
+    "cone_tpu_torch.train.step", "cone_tpu_torch.utils.logging",
+    "cone_tpu_torch.models.tan", "cone_tpu_torch.eval.tan_pipeline",
+    "cone_tpu_torch.train.tan_step", "cone_tpu_torch.tools.golden_tan_train"]
 
 
 def _modules():
@@ -82,7 +84,9 @@ def test_default_device_is_the_card_and_raises_without_one():
 
 @pytest.mark.parametrize("entry", ["localizer", "retriever", "service", "evaluate",
                                    "build_family", "load_model", "cli_infer", "cli_serve",
-                                   "bench_attn", "train", "cli_train"])
+                                   "bench_attn", "train", "cli_train", "tan_model",
+                                   "tan_build_family", "tan_pipeline", "tan_cli_train",
+                                   "golden_tan_train"])
 def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -95,6 +99,17 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     from cone_tpu_torch.train.checkpoint import load_model
     from cone_tpu_torch.data import make_synthetic_dataset
     from cone_tpu_torch.train.loop import build_family, evaluate, train
+    from cone_tpu_torch.config import TanConfig, tan_ego4d_config
+    from cone_tpu_torch.eval.tan_pipeline import TanInferencePipeline
+    from cone_tpu_torch.models.tan import ConeTanModel
+    from cone_tpu_torch.tools import golden_tan_train
+
+    tan_cfg = tan_ego4d_config()
+    tan_cfg = tan_cfg.replace(tan=TanConfig(hidden_size=8, v_feat_dim=32, t_feat_dim=32,
+                                            txt_hidden_size=8, lstm_layers=1,
+                                            map_hidden_sizes=(8,), map_kernel_sizes=(3,),
+                                            map_paddings=(1,)))
+    tan_model = ConeTanModel(tan_cfg.tan, device="cpu")
 
     mcfg = ModelConfig(hidden_dim=32, nheads=4, dim_feedforward=64, t_feat_dim=32,
                        v_motion_feat_dim=32, v_appear_feat_dim=32)
@@ -116,6 +131,13 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
                                str(tmp_path / "run")),
         "cli_train": lambda: cli.main(["train", "--synthetic", "--workdir",
                                        str(tmp_path / "run")]),
+        "tan_model": lambda: ConeTanModel(tan_ego4d_config().tan),
+        "tan_build_family": lambda: build_family(tan_ego4d_config(), seed=0),
+        "tan_pipeline": lambda: TanInferencePipeline(
+            tan_model, make_synthetic_dataset(tan_cfg.data, dim=32), tan_cfg, tan_cfg.tan),
+        "tan_cli_train": lambda: cli.main(["train", "--preset", "tan_ego4d", "--synthetic",
+                                           "--workdir", str(tmp_path / "tan")]),
+        "golden_tan_train": lambda: golden_tan_train.main([]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -309,7 +309,19 @@ def test_stack_cache_is_byte_bounded(synthetic):
 
 
 def test_tan_family_is_not_ported_yet(synthetic):
+    """The 2D-TAN family is ported now (tests/test_torch_tan_pipeline.py
+    holds it against cone_tpu): make_pipeline builds its pipeline, which
+    refuses a map that does not fit the window."""
+    from cone_tpu_torch.eval.tan_pipeline import TanInferencePipeline
+    from cone_tpu_torch.models.tan import ConeTanModel
+
     cfg, ds, model, *_ = synthetic
     tan = cfg.replace(model=dataclasses.replace(cfg.model, model_family="tan"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="num_clips"):   # 64 map cells, max_v_l 32
         make_pipeline(model, ds, tan, device="cpu")
+    tan = tan.replace(tan=dataclasses.replace(
+        tan.tan, num_clips=32, hidden_size=8, v_feat_dim=DIM, t_feat_dim=DIM,
+        txt_hidden_size=8, lstm_layers=1, map_hidden_sizes=(8,), map_kernel_sizes=(3,),
+        map_paddings=(1,)))
+    pipe = make_pipeline(ConeTanModel(tan.tan, device="cpu"), ds, tan, device="cpu")
+    assert isinstance(pipe, TanInferencePipeline) and not pipe.nms_hull

@@ -437,8 +437,14 @@ def test_tensorboard_writer_on_request(cfg, ds, tmp_path, monkeypatch):
 ])
 def test_unported_training_options_raise(cfg, ds, tmp_path, section, field, value, item):
     bad = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **{field: value})})
-    with pytest.raises(NotImplementedError, match=item):
-        train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
+    if item == "item 10":
+        # the 2D-TAN family trains now (tests/test_torch_tan_train.py): what
+        # raises, before the workdir exists, is a map that does not fit the window
+        with pytest.raises(ValueError, match="TAN geometry"):
+            train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
     assert not os.path.exists(tmp_path / "run")
 
 
