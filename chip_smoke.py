@@ -39,7 +39,15 @@ Phases, each of which raises (exit code != 0) on failure:
      kernel on vs off, fused vs staged, device time and its convolution
      share); `train` at the tan_ego4d preset, bsz 32, 2 epochs of 2 steps
      with an eval epoch and its plateau step;
-  9. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+  9. data parallelism at the Ego4D preset's full width, dropouts 0: (a)
+     `train --distributed` as a group of one rank over NCCL, held to the
+     non-distributed `train` of the same seed within 1e-6; (b) two ranks
+     sharing the card over gloo (cone_tpu_torch/tools/dist_worker.py, 16 rows
+     each of bsz 32), held to each other and to the single-process run:
+     losses, grad norms, weights, the gathered evaluation, the rank-sharded
+     library, one coarse launch per dispatch on each rank; ms per step and
+     the gradient all-reduce's bytes and ms;
+ 10. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -980,6 +988,222 @@ def tan_training_phase(card, device="cuda"):
                 step_conv_share=conv_s / busy if busy else None), launches
 
 
+PAR_WORLD1_RTOL = 1e-6                 # one rank over NCCL: the same arithmetic
+PAR_RTOL = 2e-4                        # tests/test_multiprocess.py:140-160
+
+
+def _rel(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _median_warm_ms(step_ms, per_epoch):
+    import numpy as np
+
+    return float(np.median(step_ms[per_epoch:]))
+
+
+def parallel_phase(card):
+    """Data parallelism on the card at the Ego4D preset's full width (hidden
+    256, 8 heads, 2+2 layers, FFN 1024, 256-d features), bsz 32, dropouts 0,
+    2 epochs x 2 steps and one eval epoch through the coarse kernel.
+    (a) `train --distributed` (127.0.0.1 rendezvous, one rank: NCCL) against
+    `train` without it, through the CLI in this process on its synthetic
+    set: losses and weights within 1e-6 relative. (b) two ranks on cuda:0
+    over gloo, spawned as cone_tpu_torch/tools/dist_worker.py processes,
+    against dist_worker.run in this process with no group (8 videos x 8
+    queries of 1 500-2 304 clips). A failed rank fails the phase. (c) the
+    step's time with and without a one-rank NCCL group, 10 warm steps a
+    variant taken in turns (cone_tpu_torch/tools/bench_dp_step.py). Returns
+    (measurements, coarse launches by run)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cone_tpu_torch import cli
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.parallel import distributed
+    from cone_tpu_torch.tools import bench_dp_step, dist_worker
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    t_phase = time.time()
+    sets = ["model.dropout=0", "model.input_dropout=0", "train.bsz=32", "train.n_epoch=2",
+            "train.eval_epoch_interval=2", "train.start_epoch_for_adapter=1",
+            "eval.use_pallas_coarse=true", "data.dset_name=synthetic"]
+    argv = ["train", "--synthetic", "--device", "cuda"] + [x for kv in sets
+                                                           for x in ("--set", kv)]
+    meas, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) one rank over NCCL against no group
+        runs = {}
+        for tag, extra in (("plain", []), ("nccl_world1", [
+                "--distributed", "--coordinator", f"127.0.0.1:{free_port()}",
+                "--num_processes", "1", "--process_id", "0"])):
+            wd = os.path.join(tmp, tag)
+            co.coarse_segment_max.launches = 0
+            model, history = cli.main(argv + ["--workdir", wd] + extra)
+            launches[tag] = co.coarse_segment_max.launches
+            check(not dist.is_initialized(), f"{tag}: the CLI left its process group open")
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                parallel = json.loads(f.readline())["parallel"]
+            state = torch.load(os.path.join(wd, "model_latest.ckpt"), weights_only=True)["model"]
+            runs[tag] = dict(history=history, parallel=parallel, state=state,
+                             grad_numel=sum(p.numel() for p in model.parameters()
+                                            if p.grad is not None))
+            del model
+        plain, one = runs["plain"], runs["nccl_world1"]
+        check(plain["parallel"] == {"world_size": 1, "backend": None}
+              and one["parallel"] == {"world_size": 1, "backend": "nccl"},
+              f"layouts {plain['parallel']} / {one['parallel']}")
+        loss_err = max(_rel(hn[k], hp[k]) for hp, hn in zip(plain["history"], one["history"])
+                       for k in hp if k.startswith(("loss", "eval_loss", "grad_norm")))
+        w_err = max(float((one["state"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                    for k, v in plain["state"].items())
+        n_eval = 8   # the CLI's synthetic set: 8 videos of 8 queries, one query chunk each
+        check(launches["plain"] == launches["nccl_world1"] == n_eval,
+              f"coarse launches {launches}, want {n_eval} (one per eval dispatch)")
+        check(loss_err <= PAR_WORLD1_RTOL and w_err <= PAR_WORLD1_RTOL,
+              f"world-1 NCCL vs non-distributed: losses {loss_err}, weights {w_err}")
+        dev = distributed.initialize(num_processes=1, process_id=0, device="cuda")
+        try:
+            nccl_ms = dist_worker.allreduce_ms(one["grad_numel"], dev)
+        finally:
+            distributed.shutdown()
+        meas["world1_nccl"] = dict(
+            max_rel_err_losses=loss_err, max_rel_err_weights=w_err,
+            step_ms_plain=_median_warm_ms([t * 1e3 for h in plain["history"]
+                                           for t in h["step_times"]], 2),
+            step_ms_nccl_world1=_median_warm_ms([t * 1e3 for h in one["history"]
+                                                 for t in h["step_times"]], 2),
+            allreduce_bytes=4 * one["grad_numel"], allreduce_ms=nccl_ms,
+            coarse_launches=launches["nccl_world1"], dispatches=n_eval)
+        print(f"parallel (a): train --distributed, one rank over NCCL vs train: losses, "
+              f"criterion terms and grad norms max rel err {loss_err:.2e}, weights "
+              f"{w_err:.2e} (<= {PAR_WORLD1_RTOL}); coarse launches {launches} for {n_eval} "
+              f"dispatches each", flush=True)
+
+        # (b) two ranks sharing the card over gloo, against one process
+        single = dist_worker.run("ego4d", torch.device("cuda"), os.path.join(tmp, "single"))
+        launches["single"] = single["train_launches"] + single["eval_launches"]
+        prefix = os.path.join(tmp, "ranks")
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "cone_tpu_torch.tools.dist_worker", "--out", prefix,
+             "--width", "ego4d", "--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+             "--num_processes", "2", "--process_id", str(i), "--timeout_s", "300"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.time() - t0
+        for i, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {i} exited {p.returncode}:\n{log[-4000:]}")
+        a, b = (json.load(open(f"{prefix}.{i}.json")) for i in range(2))
+
+    for r in (a, b):
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0"
+              and r["world"] == 2,
+              f"rank {r['rank']}: {r['backend']} on {r['device']}, world {r['world']}")
+        check(r["train_launches"] == r["eval_launches"] == r["dispatches"],
+              f"rank {r['rank']}: coarse launches train {r['train_launches']} / eval "
+              f"{r['eval_launches']}, want {r['dispatches']} (its dispatches)")
+        launches[f"gloo_rank{r['rank']}"] = r["train_launches"] + r["eval_launches"]
+    agree = max(_rel(a[k], b[k]) for k in ("losses", "grad_norms", "param_sum"))
+    check(agree <= PAR_WORLD1_RTOL and a["corpus_hits"] == b["corpus_hits"]
+          and a["rows"] == b["rows"] and a["ranklists"] == b["ranklists"],
+          f"the two ranks disagree (losses/grad norms/weights {agree})")
+    vs_single = {k: _rel(a[k], single[k]) for k in ("losses", "grad_norms", "param_sum")}
+    check(max(vs_single.values()) <= PAR_RTOL, f"2 ranks vs one process: {vs_single}")
+
+    # the gathered evaluation against the single run's
+    n_q = len(single["ranklists"])
+    span_err = score_err = 0.0
+    flips = 0
+    for m, rows in single["rows"].items():
+        check(set(a["rows"][m]) == set(rows) and len(rows) == n_q,
+              f"{m}: {len(a['rows'][m])} gathered rows for {n_q} queries")
+        for q, want in rows.items():
+            got, want = np.asarray(a["rows"][m][q]), np.asarray(want)
+            check(got.shape == want.shape, f"{m} {q}: {got.shape} vs {want.shape}")
+            if got.size:
+                span_err = max(span_err, float(np.abs(got[:, :2] - want[:, :2]).max()))
+                score_err = max(score_err, float(np.abs(got[:, 2] - want[:, 2]).max()))
+    check(span_err <= SPAN_ATOL and score_err <= SCORE_ATOL,
+          f"gathered eval vs single: spans {span_err}, scores {score_err}")
+    for q, want in single["ranklists"].items():
+        got = a["ranklists"][q]
+        if got != want:   # only near-ties may swap: the single run's scores in this order
+            s = np.asarray(single["window_scores"][q])[got]
+            check(bool((s[:-1] >= s[1:] - REL_TOL * np.maximum(1.0, np.abs(s[1:]))).all()),
+                  f"{q}: gathered ranklist differs beyond near-ties")
+            flips += sum(x != y for x, y in zip(got, want))
+    # the rank-sharded library against the whole library
+    lib_span = lib_fused = 0.0
+    for got, want in zip(a["corpus_hits"], single["corpus_hits"]):
+        check([g[0] for g in got] == [w[0] for w in want], "sharded library: video order")
+        for g, w in zip(got, want):
+            lib_span = max(lib_span, abs(g[1] - w[1]), abs(g[2] - w[2]))
+            lib_fused = max(lib_fused, abs(g[3] - w[3]))
+    check(len(a["corpus_hits"]) == len(single["corpus_hits"]) and lib_span <= 1e-4
+          and lib_fused <= 1e-3, f"sharded library: spans {lib_span}, fused {lib_fused}")
+
+    meas["world2_gloo_shared_card"] = dict(
+        note="two ranks sharing one card over gloo: a correctness run, not a scaling figure",
+        ranks_agree_max_rel=agree, vs_single_max_rel=vs_single, eval_span_err=span_err,
+        eval_score_err=score_err, ranklist_near_tie_flips=flips, library_span_err=lib_span,
+        library_fused_err=lib_fused, step_ms_single=_median_warm_ms(single["step_ms"], 2),
+        step_ms_rank0=_median_warm_ms(a["step_ms"], 2),
+        step_ms_rank1=_median_warm_ms(b["step_ms"], 2), allreduce_bytes=a["allreduce_bytes"],
+        allreduce_ms_rank0=a["allreduce_ms"], allreduce_ms_rank1=b["allreduce_ms"],
+        dispatches={0: a["dispatches"], 1: b["dispatches"]}, ranks_wall_s=ranks_s)
+    w1, w2 = meas["world1_nccl"], meas["world2_gloo_shared_card"]
+    print(f"parallel (b): 2 gloo ranks on cuda:0, 16 rows each: ranks agree within {agree:.1e}; "
+          f"vs one process losses {vs_single['losses']:.2e}, grad norms "
+          f"{vs_single['grad_norms']:.2e}, weights {vs_single['param_sum']:.2e} (<= {PAR_RTOL}); "
+          f"gathered eval {n_q} queries, spans {span_err:.2e}, scores {score_err:.2e}, "
+          f"{flips} near-tie ranklist flips; sharded library spans {lib_span:.1e}, fused "
+          f"{lib_fused:.1e}; coarse launches == dispatches on each rank "
+          f"({a['dispatches']}, {b['dispatches']})", flush=True)
+    print(f"parallel timings [{card}] (host clock, median of the 2 warm steps of epoch 2 "
+          f"in each run): ms per step "
+          f"non-distributed {w1['step_ms_plain']:.2f} (CLI set) / {w2['step_ms_single']:.2f} "
+          f"(worker set), world-1 NCCL {w1['step_ms_nccl_world1']:.2f}, world-2 gloo on one "
+          f"card {w2['step_ms_rank0']:.2f} / {w2['step_ms_rank1']:.2f} (a correctness run, not "
+          f"a scaling figure); gradient all-reduce {w1['allreduce_bytes']} bytes: NCCL world 1 "
+          f"{w1['allreduce_ms']:.3f} ms, gloo world 2 {w2['allreduce_ms_rank0']:.3f} ms; "
+          f"phase so far {time.time() - t_phase:.1f} s", flush=True)
+
+    # the step's time with and without the group, over more steps, in turns
+    t0 = time.time()
+    turns = bench_dp_step.run(steps=5, rounds=2, device="cuda", profile=False)
+    check(turns["backend"] == "nccl", f"bench_dp_step's group: {turns['backend']}")
+    meas["step_in_turns"] = {k: turns[k] for k in (
+        "steps_per_variant", "step_ms_median", "step_ms_min", "collectives", "pieces_ms")}
+    med = turns["step_ms_median"]
+    print(f"parallel step in turns [{card}] (cone_tpu_torch/tools/bench_dp_step.py, "
+          f"{turns['steps_per_variant']} warm steps a variant, host clock): median ms plain "
+          f"{med['plain']:.2f}, data-parallel path without collectives {med['noop']:.2f}, "
+          f"world-1 NCCL gradient all-reduce only {med['group_grads']:.2f}, world-1 NCCL "
+          f"{med['group']:.2f}; collectives {turns['collectives']}; {time.time() - t0:.1f} s; "
+          f"phase {time.time() - t_phase:.1f} s", flush=True)
+    return meas, launches
+
+
 def _self_device_us(evt):
     t = getattr(evt, "self_device_time_total", None)
     return evt.self_cuda_time_total if t is None else t
@@ -1243,6 +1467,9 @@ def main():
     tan["inference"], tan_launches = tan_inference_phase(smi)
     tan["training"], tan_train_launches = tan_training_phase(smi)
 
+    # 9. data parallelism
+    parallel, par_launches = parallel_phase(smi)
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -1251,9 +1478,11 @@ def main():
         name="coarse_segment_max", route="cuda",
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
         replaces="cone_tpu/ops/pallas_coarse.py:66",
-        launches=launches + train_launches + tan_launches + tan_train_launches,
+        launches=(launches + train_launches + tan_launches + tan_train_launches
+                  + sum(par_launches.values())),
         launches_by_path={"inference": launches, "train_eval": train_launches,
-                          "tan_inference": tan_launches, "tan_train_eval": tan_train_launches},
+                          "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
+                          **{f"parallel_{k}": v for k, v in par_launches.items()}},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -1273,7 +1502,7 @@ def main():
         bfloat16=dict(max_abs_err=attn_err["bfloat16"], **{k: a16[k] for k in keys})))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
-                      "card": smi}))
+                      "parallel": parallel, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -15,11 +15,21 @@ config.json and model_<tag>.ckpt, a reference-named torch checkpoint
 
 `train` starts from a preset (ego4d, mad, and the 2D-TAN family's tan_ego4d,
 tan_mad) or a --config file, writes its workdir (config.json, checkpoints,
-logs) and trains on one device. A 2D-TAN workdir infers and serves like a
-CONE one.
+logs) and trains on one device, or data parallel over ranks
+(parallel/distributed.py), one process each:
+
+    train --distributed --coordinator HOST:PORT --num_processes N --process_id I
+    torchrun --nproc_per_node N -m cone_tpu_torch train --distributed
+    train --mesh      # a group of this one rank, on this device
+
+Ranks train on row blocks of each global batch with the global batch's
+loss and share the workdir; rank 0 writes it. Backends, from every rank's
+host name and card count after the rendezvous: NCCL when no host runs
+more ranks than it has cards, gloo on the CPU (--device cpu) and when
+ranks share a card. A 2D-TAN workdir infers and serves like a CONE one.
 
 Not ported yet: demo, reformat, extract-*, convert-store; of train, the
-bfloat16 *_scratch presets and multi-device training.
+bfloat16 *_scratch presets and tensor parallelism (train.tp_devices > 1).
 """
 
 from __future__ import annotations
@@ -96,17 +106,37 @@ def _load_cfg(args):
 
 
 def cmd_train(args):
-    multi = [f"--{k}" for k in ("mesh", "distributed", "coordinator", "num_processes",
-                                "process_id") if getattr(args, k) not in (None, False)]
-    if multi:
-        raise NotImplementedError(
-            f"{' '.join(multi)}: multi-device and multi-host training are not ported "
-            "yet (ROADMAP Queue 1 item 11); the port trains on one device")
-    from cone_tpu_torch.train.loop import train
+    from cone_tpu_torch.parallel import distributed
 
+    layout = [f"--{k}" for k in ("coordinator", "num_processes", "process_id")
+              if getattr(args, k) is not None]
+    if layout and not args.distributed:
+        raise SystemExit(f"{' '.join(layout)} need --distributed")
     cfg = _load_cfg(args)
     if args.debug:
         cfg = _apply_overrides(cfg, ["train.debug=true"])
+    if not args.dump_config:   # before any data is read or a rank joins
+        from cone_tpu_torch.train.loop import check_supported
+
+        check_supported(cfg)
+    if args.dump_config or not (args.distributed or args.mesh):
+        return _train(args, cfg, args.device)
+    if args.distributed:
+        dev = distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                     device=args.device)
+    else:
+        dev = distributed.initialize(num_processes=1, process_id=0, device=args.device)
+    try:
+        print(f"rank {distributed.rank()} of {distributed.world_size()} on {dev} "
+              f"({distributed.backend()})", flush=True)
+        return _train(args, cfg, dev)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, cfg, device):
+    from cone_tpu_torch.train.loop import train
+
     if args.train_path:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, train_path=args.train_path))
     if args.eval_path:
@@ -144,8 +174,8 @@ def cmd_train(args):
         n = int(len(train_ds.examples) * cfg.data.train_data_ratio)
         train_ds.examples = train_ds.examples[:n]
         print(f"train_data_ratio={cfg.data.train_data_ratio}: {n} train samples")
-    train(cfg, train_ds, eval_ds, args.workdir, profile=args.profile,
-          init_ckpt=args.init_ckpt, device=args.device, tensorboard=args.tensorboard)
+    return train(cfg, train_ds, eval_ds, args.workdir, profile=args.profile,
+                 init_ckpt=args.init_ckpt, device=device, tensorboard=args.tensorboard)
 
 
 def _restore(args, cfg):
@@ -416,11 +446,15 @@ def main(argv=None):
                         " and exit (no training)")
     t.add_argument("--tensorboard", action="store_true",
                    help="also write a TensorBoard log (needs the tensorboard package)")
-    for flag in ("--coordinator", "--num_processes", "--process_id"):
-        t.add_argument(flag, help="multi-host training: not ported yet (raises)")
-    for flag in ("--mesh", "--distributed"):
-        t.add_argument(flag, action="store_true",
-                       help="multi-device training: not ported yet (raises)")
+    t.add_argument("--mesh", action="store_true",
+                   help="data parallel over a group of this one rank (no --distributed)")
+    t.add_argument("--distributed", action="store_true",
+                   help="data parallel: this process is one rank; with --coordinator,"
+                        " --num_processes and --process_id, or torchrun's environment;"
+                        " the workdir must be shared by every rank")
+    t.add_argument("--coordinator", help="rendezvous host:port (rank 0 listens there)")
+    t.add_argument("--num_processes", type=int)
+    t.add_argument("--process_id", type=int)
     _add_device(t)
     t.set_defaults(fn=cmd_train)
 
@@ -523,7 +557,7 @@ def main(argv=None):
     n.set_defaults(fn=cmd_ensemble)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,19 @@ def top_k_ref_order(x: torch.Tensor, k: int):
     return vals[..., :k], x.shape[-1] - 1 - ridx[..., :k]
 
 
+def within_window_nms(prob: torch.Tensor, num_clips: int, top_p: int):
+    """(N, S * E) cell probabilities -> (spans in map cells (N, top_p, 2),
+    their probabilities, valid (N, top_p)): greedy NMS at
+    NMS_THRESH_WITHIN_WINDOW over the PRE_NMS_POOL best cells, as cone_tpu
+    does. The reference scans the whole map until it holds top_p survivors
+    (moment_localization/test.py:242-289), so a map whose best 128 cells
+    cluster keeps fewer than top_p here (ROADMAP Queue 3)."""
+    pool_prob, pool_idx = top_k_ref_order(prob, min(PRE_NMS_POOL, num_clips * num_clips))
+    cells = torch.stack([pool_idx // num_clips, pool_idx % num_clips + 1], dim=-1).float()
+    return temporal_nms_device(cells, pool_prob, pool_prob > 0, NMS_THRESH_WITHIN_WINDOW,
+                               top_p, hull_union=False)
+
+
 class TanInferencePipeline(InferencePipeline):
     nms_hull = False  # 2D-TAN's NMS uses the standard union IoU (eval.py:34-56)
 
@@ -80,11 +93,7 @@ class TanInferencePipeline(InferencePipeline):
         # reference's sigmoid(prediction) * map_mask (test.py:121-125)
         prob = (torch.sigmoid(scores) * map_mask).reshape(n, nc * nc)
         if self.nms_within_window:
-            pool_prob, pool_idx = top_k_ref_order(prob, min(PRE_NMS_POOL, nc * nc))
-            cells = torch.stack([pool_idx // nc, pool_idx % nc + 1], dim=-1).float()
-            spans_clip, top_prob, cand_valid = temporal_nms_device(
-                cells, pool_prob, pool_prob > 0, NMS_THRESH_WITHIN_WINDOW, top_p,
-                hull_union=False)
+            spans_clip, top_prob, cand_valid = within_window_nms(prob, nc, top_p)
         else:
             top_prob, top_idx = top_k_ref_order(prob, top_p)
             # cell (s, e) covers clips [s, e + 1)

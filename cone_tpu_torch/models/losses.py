@@ -14,6 +14,16 @@ One deliberate deviation from the reference, shared with the JAX package:
 the negative window's max saliency is taken over its valid frames only
 (the reference's max runs over padding too, cone/model.py:358). The two
 agree when windows are full-length.
+
+Data parallel: every term is this rank's exact share of the global batch's
+term, so the shares sum over ranks to the global loss and their gradients,
+summed over ranks, to its gradient (parallel/distributed.GroupReduce). The
+per-element means divide by counts that are equal on every rank (rows
+split evenly) and become local means over the world size; the two terms
+that couple rows take global quantities from the group: the span L1 and
+gIoU divide by the global span count, and the adapter's InfoNCE scores its
+rows and columns against the gathered other side. With one rank and no
+group every reduction is the identity.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 from cone_tpu_torch.config import LossConfig
 from cone_tpu_torch.ops.matching import hungarian_match, matcher_cost, safe_target_spans
 from cone_tpu_torch.ops.spans import generalized_temporal_iou, span_cxw_to_xx
+from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce
 
 FOREGROUND = 0
 BACKGROUND = 1
@@ -50,11 +61,11 @@ def _match_layer(outputs, tgt_spans, span_mask, cfg: LossConfig):
         return hungarian_match(cost, span_mask)  # (B, NT)
 
 
-def _span_losses(outputs, tgt_spans, span_mask, assign):
-    """L1 + gIoU over matched pairs (cone/model.py:266-297)."""
+def _span_losses(outputs, tgt_spans, span_mask, assign, n):
+    """L1 + gIoU over matched pairs (cone/model.py:266-297); `n` is the
+    global batch's span count (at least 1)."""
     src = torch.gather(outputs["pred_spans"], 1, assign[..., None].expand(-1, -1, 2))
     l1 = (src - tgt_spans).abs().sum(-1)  # (B, NT): per-span L1 over 2 coords
-    n = span_mask.sum().clamp(min=1.0)
     loss_span = (l1 * span_mask).sum() / (2.0 * n)  # mean over 2 * #spans elements
 
     # padded target slots are degenerate (0, 0) spans; if the matched
@@ -68,9 +79,13 @@ def _span_losses(outputs, tgt_spans, span_mask, assign):
     return loss_span, loss_giou
 
 
-def _label_loss(outputs, assign, span_mask, neg_outputs, eos_coef):
+def _label_loss(outputs, assign, span_mask, neg_outputs, eos_coef, n=None, world=1):
     """Foreground/background CE; the negative window's logits are appended
-    as pure background (cone/model.py:299-329). Returns (loss, class_error)."""
+    as pure background (cone/model.py:299-329). Returns (loss, class_error)
+    as this rank's shares; `n` is the global span count (default: these
+    rows' own, one process)."""
+    if n is None:
+        n = span_mask.sum().clamp(min=1.0)
     logits = outputs["pred_logits"]  # (B, NQ, 2)
     if neg_outputs is not None:
         logits = torch.cat([logits, neg_outputs["pred_logits"]], dim=1)
@@ -80,19 +95,21 @@ def _label_loss(outputs, assign, span_mask, neg_outputs, eos_coef):
     fg = torch.zeros(logits.shape[:2], dtype=span_mask.dtype, device=logits.device)
     fg = fg.scatter_reduce(1, assign, span_mask, reduce="amax")
     labels = torch.where(fg > 0, FOREGROUND, BACKGROUND)
-    loss = _weighted_ce(logits, labels, eos_coef)
+    loss = _weighted_ce(logits, labels, eos_coef) / world
 
     # class_error on the matched positive-window queries (cone/misc.py:4,
     # cone/model.py:328): % of matched queries whose argmax is not foreground
     with torch.no_grad():
         matched = torch.gather(outputs["pred_logits"], 1, assign[..., None].expand(-1, -1, 2))
         correct = (matched.argmax(-1) == FOREGROUND).to(span_mask.dtype) * span_mask
-        class_error = 100.0 - 100.0 * correct.sum() / span_mask.sum().clamp(min=1.0)
+        class_error = 100.0 * (span_mask.sum() - correct.sum()) / n
     return loss, class_error
 
 
-def _saliency_loss(outputs, sal_pos, sal_neg, neg_outputs, neg_vid_mask, margin: float):
-    """Intra-window hinge + inter-window hinge (cone/model.py:331-365)."""
+def _saliency_loss(outputs, sal_pos, sal_neg, neg_outputs, neg_vid_mask, margin: float,
+                   world: int):
+    """Intra-window hinge + inter-window hinge (cone/model.py:331-365),
+    this rank's share."""
     scores = outputs["saliency_scores"]  # (B, L)
     b, n_pairs = sal_pos.shape
     pos = torch.gather(scores, 1, sal_pos)  # (B, P)
@@ -104,54 +121,69 @@ def _saliency_loss(outputs, sal_pos, sal_neg, neg_outputs, neg_vid_mask, margin:
             neg_scores = torch.where(neg_vid_mask.bool(), neg_scores, -1e30)
         neg_max = neg_scores.amax(dim=1, keepdim=True)  # (B, 1)
         loss = loss + (margin + neg_max - pos).clamp(min=0).sum() / (b * n_pairs) * 2
-    return loss
+    return loss / world
 
 
-def adapter_nce_loss(logits_per_video: torch.Tensor, temperature: float) -> torch.Tensor:
-    """Symmetric InfoNCE over the (B, B) video <-> text similarity matrix
-    (cone/model.py:250-264)."""
-    logits = logits_per_video / temperature
-    loss_v = -logits.log_softmax(-1).diagonal().mean()
-    loss_t = -logits.T.log_softmax(-1).diagonal().mean()
+def adapter_nce_share(prop: torch.Tensor, text: torch.Tensor, temperature: float,
+                      reduce: GroupReduce = LOCAL) -> torch.Tensor:
+    """This rank's share of the adapter's symmetric InfoNCE over the global
+    batch's (B, B) video <-> text matrix logits_per_video = prop @ text.T
+    (cone/model.py:250-264), from its (b, D) unit-norm proposal and text
+    rows (ops/pooling.matching_embeds_gt): its b rows of the matrix against
+    the gathered text side, and its b columns against the gathered proposal
+    side. With one rank and no group, the whole loss."""
+    b, d = prop.shape
+    both = reduce.gather_rows(torch.cat([prop, text], dim=1))   # (B, 2D), rank order
+    own = (torch.arange(b, device=prop.device) + reduce.rank * b)[:, None]
+    rows = (prop @ both[:, d:].T) / temperature     # own rows of logits_per_video
+    cols = (text @ both[:, :d].T) / temperature     # own columns, transposed
+    n = b * reduce.world
+    loss_v = -rows.log_softmax(-1).gather(1, own).sum() / n
+    loss_t = -cols.log_softmax(-1).gather(1, own).sum() / n
     return (loss_v + loss_t) / 2
 
 
 def compute_losses(outputs: dict, targets: Optional[dict], neg_outputs: Optional[dict],
-                   cfg: LossConfig) -> dict:
-    """Every criterion term (unweighted), keyed like the reference.
+                   cfg: LossConfig, reduce: GroupReduce = LOCAL) -> dict:
+    """Every criterion term (unweighted), keyed like the reference; with a
+    group, this rank's share of each (module docstring).
 
-    outputs: the model's output dict (with "aux_outputs", and
-    "logits_per_video" when the adapter loss is on). targets: span_labels,
-    span_mask, saliency_pos, saliency_neg, or None for the label-only mode
-    (cone/model.py:398-401). neg_outputs: the negative window's outputs or
-    None; its optional "vid_mask" (B, L) bounds the saliency max."""
+    outputs: the model's output dict (with "aux_outputs", and for the
+    adapter loss "adapter_embeds", this rank's (prop, text) rows).
+    targets: span_labels, span_mask, saliency_pos, saliency_neg, or None for
+    the label-only mode (cone/model.py:398-401). neg_outputs: the negative
+    window's outputs or None; its optional "vid_mask" (B, L) bounds the
+    saliency max."""
     losses = {}
+    world = reduce.world
     if targets is None:
         logits = outputs["pred_logits"]
         labels = torch.full(logits.shape[:2], BACKGROUND, dtype=torch.int64,
                             device=logits.device)
-        losses["loss_label"] = _weighted_ce(logits, labels, cfg.eos_coef)
+        losses["loss_label"] = _weighted_ce(logits, labels, cfg.eos_coef) / world
         return losses
 
     tgt_spans = targets["span_labels"]
     span_mask = targets["span_mask"].float()
+    n = reduce.sum(span_mask.sum()).clamp(min=1.0)
     assign = _match_layer(outputs, tgt_spans, span_mask, cfg)
     losses["loss_span"], losses["loss_giou"] = _span_losses(outputs, tgt_spans, span_mask,
-                                                            assign)
+                                                            assign, n)
     losses["loss_label"], losses["class_error"] = _label_loss(
-        outputs, assign, span_mask, neg_outputs, cfg.eos_coef)
+        outputs, assign, span_mask, neg_outputs, cfg.eos_coef, n, world)
     losses["loss_saliency"] = _saliency_loss(
         outputs, targets["saliency_pos"], targets["saliency_neg"], neg_outputs,
-        neg_outputs.get("vid_mask") if neg_outputs else None, cfg.saliency_margin)
-    if "logits_per_video" in outputs:
-        losses["loss_adapter"] = adapter_nce_loss(outputs["logits_per_video"], cfg.temperature)
+        neg_outputs.get("vid_mask") if neg_outputs else None, cfg.saliency_margin, world)
+    if "adapter_embeds" in outputs:
+        losses["loss_adapter"] = adapter_nce_share(*outputs["adapter_embeds"], cfg.temperature,
+                                                   reduce)
     if cfg.aux_loss:
         for i, aux in enumerate(outputs.get("aux_outputs", [])):
             a_assign = _match_layer(aux, tgt_spans, span_mask, cfg)
             losses[f"loss_span_{i}"], losses[f"loss_giou_{i}"] = _span_losses(
-                aux, tgt_spans, span_mask, a_assign)
+                aux, tgt_spans, span_mask, a_assign, n)
             losses[f"loss_label_{i}"], losses[f"class_error_{i}"] = _label_loss(
-                aux, a_assign, span_mask, neg_outputs, cfg.eos_coef)
+                aux, a_assign, span_mask, neg_outputs, cfg.eos_coef, n, world)
     return losses
 
 

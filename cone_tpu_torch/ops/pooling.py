@@ -36,15 +36,24 @@ def proposal_mean_pool(vid_appear: torch.Tensor, vid_appear_mask: torch.Tensor,
     return masked_segment_mean(vid_appear, start, end)
 
 
-def matching_sim_gt(adapt_fn, src_cls_txt, src_vid_appear, proposal_start,
-                    proposal_end):
-    """GT-proposal <-> text CLS similarity matrix (B, B)
-    (cone/model.py:130-148). `adapt_fn` is the residual adapter."""
+def matching_embeds_gt(adapt_fn, src_cls_txt, src_vid_appear, proposal_start,
+                       proposal_end):
+    """The two unit-norm sides of the GT-proposal matching: (B, D) adapted
+    proposal features and (B, D) text CLS (cone/model.py:130-148).
+    `adapt_fn` is the residual adapter."""
     text = src_cls_txt / torch.linalg.vector_norm(src_cls_txt, dim=1, keepdim=True)
     pooled = masked_segment_mean(src_vid_appear, proposal_start[:, None],
                                  proposal_end[:, None])[:, 0]
     prop = adapt_fn(pooled)
-    prop = prop / torch.linalg.vector_norm(prop, dim=1, keepdim=True)
+    return prop / torch.linalg.vector_norm(prop, dim=1, keepdim=True), text
+
+
+def matching_sim_gt(adapt_fn, src_cls_txt, src_vid_appear, proposal_start,
+                    proposal_end):
+    """GT-proposal <-> text CLS similarity matrix (B, B)
+    (cone/model.py:130-148)."""
+    prop, text = matching_embeds_gt(adapt_fn, src_cls_txt, src_vid_appear,
+                                    proposal_start, proposal_end)
     return prop @ text.T
 
 

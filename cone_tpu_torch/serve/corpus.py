@@ -22,8 +22,13 @@ No reference counterpart (cone/inference.py grounds per annotation); the
 scoring math inside each stage is the per-video pipeline's, tested against
 the reference. Results: [video_id, st, ed, prop, match, fusion].
 
-One process, one device: a library sharded over several devices or hosts is
-ROADMAP Queue 1 item 11.
+A library sharded over ranks (parallel/distributed.py, one process per
+device): each rank adds only its own movies and scans only those; the
+per-query top-k (score, video, window) triples merge across ranks under the
+same total order as one process, each rank fine-runs only its own chosen
+windows, and the candidate rows merge before the min-max fusion, so every
+rank returns the identical corpus-wide ranking, equal to one retriever
+holding the whole library (cone_tpu/serve/corpus.py:551-557).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from cone_tpu_torch.data.store import (
 from cone_tpu_torch.eval.pipeline import _fetch, make_pipeline
 from cone_tpu_torch.ops.nms import temporal_nms_host
 from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+from cone_tpu_torch.parallel import distributed
 from cone_tpu_torch.utils.io import l2_normalize, min_max_normalize
 
 
@@ -216,11 +222,11 @@ class CorpusRetriever:
         the trained adapter, cone/inference.py:276-299 generalized across
         videos); the fine stage refines *moments* within the shortlist."""
         scored = self._coarse_all(np.asarray(cls_feat, np.float32)[None])
-        best = {
-            cid: float(np.max(scores[0][:num_windows(ctx_l, self.pipe.stride)]))
+        best = [
+            (cid, float(np.max(scores[0][:num_windows(ctx_l, self.pipe.stride)])))
             for cid, ctx_l, scores in scored
-        }
-        return sorted(best.items(), key=lambda kv: -kv[1])
+        ]
+        return sorted(distributed.all_gather_rows(best), key=lambda kv: -kv[1])
 
     def _ensure_stacked(self):
         """Group the corpus by padded bucket length into stacked device
@@ -231,7 +237,10 @@ class CorpusRetriever:
         which the retriever never calls, so the corpus is held once.)"""
         if self._stacked is not None:
             return self._stacked
-        assert self.clip_ids, "corpus is empty: add_video() first"
+        # a rank of a group may hold no shard (more ranks than movies), but
+        # it still takes part in every merge
+        assert self.clip_ids or distributed.world_size() > 1, \
+            "corpus is empty: add_video() first"
         by_bucket: Dict[int, List[str]] = {}
         for cid in self.clip_ids:
             l_pad = self.pipe._device_video(cid)[0].shape[0]
@@ -349,9 +358,12 @@ class CorpusRetriever:
         # deterministic top-k under the (score desc, video, window) TOTAL
         # order: coarse scores tie exactly whenever 50%-overlapping windows
         # share their segment-max frame, so an argpartition-only cut would
-        # pick arbitrary tie members. argpartition to a 4x margin first (tie
-        # groups are about 2-3 wide), then lexsort just the margin.
-        merged_all: List[list] = []
+        # pick arbitrary tie members, and a sharded library would disagree
+        # with the whole one. argpartition to a 4x margin first (tie groups
+        # are about 2-3 wide), then lexsort just the margin. The local top-k
+        # holds this rank's part of the global one; the ranks' triples merge
+        # under the same order.
+        payload = []
         for qi in range(nq):
             if kth:
                 m = min(S.shape[1], max(4 * kth, kth + 64))
@@ -362,10 +374,13 @@ class CorpusRetriever:
                 sel = order[:kth]
             else:
                 sel = np.zeros(0, np.int64)
-            payload = [(float(S[qi, c]), col_cid[c], int(col_w[c])) for c in sel]
-            merged_all.append(sorted(payload, key=lambda t: (-t[0], t[1], t[2]))[:k])
+            payload.append([(float(S[qi, c]), col_cid[c], int(col_w[c])) for c in sel])
+        gathered = distributed.all_gather_obj(payload)
+        mine = set(self.clip_ids)
         chosen: List[Dict[str, List[int]]] = [dict() for _ in range(nq)]
-        for qi, merged in enumerate(merged_all):
+        for qi in range(nq):
+            merged = sorted((t for g in gathered for t in g[qi]),
+                            key=lambda t: (-t[0], t[1], t[2]))[:k]
             if adaptive_margin is not None and merged:
                 # per-query adaptive budget: drop windows whose coarse score
                 # trails the query's best by more than the margin, so the
@@ -376,7 +391,8 @@ class CorpusRetriever:
                 floor = merged[0][0] - adaptive_margin
                 merged = [t for t in merged if t[0] >= floor]
             for _, cid, w in merged:
-                chosen[qi].setdefault(cid, []).append(int(w))
+                if cid in mine:
+                    chosen[qi].setdefault(cid, []).append(int(w))
 
         # stage 3: fine. Queries that shortlisted the same movie batch into
         # one forward (fine_chunk lanes); everything is launched before the
@@ -438,6 +454,9 @@ class CorpusRetriever:
                              float(f"{spans_sec[j, w, p, 1]:.4f}"),
                              float(f"{prob[j, w, p]:.4f}"),
                              float(f"{match[j, w, p]:.4f}")])
+        # the min-max fusion must see the query's corpus-wide candidate set
+        parts = distributed.all_gather_obj(rows)
+        rows = [[r for g in parts for r in g[qi]] for qi in range(nq)]
         return [
             self._postprocess(rows[qi], queries[qi], top_moments)
             for qi in range(nq)

@@ -39,6 +39,7 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
     from cone_tpu_torch.data import TrainLoader, make_synthetic_dataset
     from cone_tpu_torch.data.prefetch import prefetch_iterator
     from cone_tpu_torch.models.losses import compute_losses, loss_weight_dict, total_loss
+    from cone_tpu_torch.ops.pooling import matching_embeds_gt
     from cone_tpu_torch.train.loop import build_family, device_seconds
     from cone_tpu_torch.train.optim import make_optimizer
     from cone_tpu_torch.train.step import batch_to_device, make_train_step, to_floats
@@ -95,8 +96,8 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
         pos = model(b["query_tokens"], b["query_mask"], b["pos_motion"], b["pos_mask"])
         neg = model(b["query_tokens"], b["query_mask"], b["neg_motion"], b["neg_mask"])
         neg["vid_mask"] = b["neg_mask"]
-        pos["logits_per_video"] = model.clip_matching_gt(
-            b["query_cls"], b["pos_appear"], b["prop_start"], b["prop_end"])
+        pos["adapter_embeds"] = matching_embeds_gt(
+            model.adapt, b["query_cls"], b["pos_appear"], b["prop_start"], b["prop_end"])
         _sync(dev)
         t1 = time.perf_counter()
         losses = compute_losses(pos, {"span_labels": b["span_labels"],

@@ -19,6 +19,10 @@ on a stop-score improvement, `latest` at every eval, periodic `e{NNNN}`.
 a fresh patience window, and for 2D-TAN the plateau controller's
 `plateau_best` and `plateau_num_bad` (its only copy: a TAN checkpoint has
 no "lr_scheduler").
+
+Data parallel: the workdir is shared by every rank; rank 0 writes (the
+config and each checkpoint), the others wait at a barrier after the rename,
+and every rank restores.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from cone_tpu_torch.config import ConeConfig
 from cone_tpu_torch.convert import load_reference_state_dict, load_reference_tan_state_dict
 from cone_tpu_torch.models.tan import ConeTanModel
+from cone_tpu_torch.parallel import distributed
 
 
 def load_config(workdir: str) -> ConeConfig:
@@ -83,28 +88,30 @@ def load_params(path: str, model: torch.nn.Module) -> None:
 
 class CheckpointManager:
     """best / latest / periodic checkpoints of one workdir; writes
-    config.json at construction when given a config."""
+    config.json at construction when given a config (rank 0)."""
 
     def __init__(self, workdir: str, cfg: Optional[ConeConfig] = None):
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
-        if cfg is not None:
+        if cfg is not None and distributed.is_main():
             cfg.save(os.path.join(workdir, "config.json"))
 
     def save(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None,
              epoch: int = 0, extra: Optional[Dict[str, float]] = None) -> str:
         """Write model_<tag>.ckpt atomically (a temporary file, then
-        os.replace)."""
-        state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                 "epoch": int(epoch),
-                 "extra": {k: float(v) for k, v in (extra or {}).items()}}
-        if optimizer is not None:
-            state["optimizer"] = optimizer.state_dict()
-        if scheduler is not None:
-            state["lr_scheduler"] = scheduler.state_dict()
+        os.replace) on rank 0; every rank returns once it is in place."""
         path = checkpoint_path(self.workdir, tag)
-        torch.save(state, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        if distributed.is_main():
+            state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     "epoch": int(epoch),
+                     "extra": {k: float(v) for k, v in (extra or {}).items()}}
+            if optimizer is not None:
+                state["optimizer"] = optimizer.state_dict()
+            if scheduler is not None:
+                state["lr_scheduler"] = scheduler.state_dict()
+            torch.save(state, path + ".tmp")
+            os.replace(path + ".tmp", path)
+        distributed.barrier(f"checkpoint {tag}")
         return path
 
     def restore(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None):

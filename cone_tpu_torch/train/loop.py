@@ -9,11 +9,17 @@ The stop score is the mean of the R@1 row, at IoU {0.3, 0.5} for Ego4D and
 
 Both families: CONE (AdamW with a step lr decay, train/step.py) and
 2D-TAN (Adam with a plateau-controlled lr, train/tan_step.py), picked by
-model.model_family. Single process on one device. Not ported yet, each
-raising where it would be asked for: data and tensor parallel training
-(ROADMAP Queue 1 item 11) and the multiscale loader (item 14, CONE-only).
-`train.rng_impl` chooses a JAX PRNG and has no counterpart here: dropout
-draws from torch's generator, seeded from train.seed.
+model.model_family. One process on one device, or data parallel over the
+ranks of an initialized torch.distributed group (parallel/distributed.py):
+each rank trains on its row block of every global batch with the global
+batch's loss, evaluates its strided share of the videos and gathers the
+rows, so every rank holds the same weights, metrics and early-stop state.
+Not ported yet, each raising where it would be asked for: tensor parallel
+training (ROADMAP Queue 1 item 11) and the multiscale loader (item 14,
+CONE-only). `train.rng_impl` chooses a JAX PRNG and has no counterpart
+here: dropout draws from torch's generator, seeded from train.seed plus
+the rank (cone_tpu draws every row's mask from one global key, so a data
+parallel run equals a single-process one only with dropout off).
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ from cone_tpu_torch.eval.metrics import (
 from cone_tpu_torch.eval.pipeline import make_pipeline
 from cone_tpu_torch.models.cone import ConeModel
 from cone_tpu_torch.models.tan import ConeTanModel
+from cone_tpu_torch.parallel import distributed
+from cone_tpu_torch.parallel.mesh import row_block, tp_size
 from cone_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from cone_tpu_torch.train.optim import make_optimizer, make_tan_optimizer
 from cone_tpu_torch.train.step import (
@@ -83,19 +91,34 @@ def evaluate(model, eval_ds: GroundingDataset, cfg: ConeConfig,
     """Run inference + metrics on a flat-jsonl-style GT (the dataset's own
     examples). Returns a dict with the submissions and ranklists, the recall
     table per modality, the window recall and their printable tables. The
-    model runs in eval mode and is handed back in the mode it came in."""
+    model runs in eval mode and is handed back in the mode it came in.
+
+    In a process group the videos shard by rank (strided over the sorted
+    clip ids), each rank grounds its own, and the submission rows and
+    ranklists are gathered, so every rank returns the full table
+    (cone_tpu/train/loop.py:110-131)."""
     if cfg.train.debug:
         # smoke mode: one query chunk end to end (the GT below comes from the
         # same truncated example list, so the tables stay consistent)
         eval_ds = copy.copy(eval_ds)
         eval_ds.examples = eval_ds.examples[: max(cfg.eval.query_chunk, 8)]
     device = resolve_device(device)
+    mine = set(distributed.shard_by_process(sorted({e.clip_id for e in eval_ds.examples})))
+    ds_local = copy.copy(eval_ds)
+    ds_local.examples = [e for e in eval_ds.examples if e.clip_id in mine]
+    subs, ranklists = {}, {}
     was_training = model.training
     try:
-        pipe = make_pipeline(model, eval_ds, cfg, device=device)
-        subs, ranklists = pipe.run(host_postproc=host_postproc and not fused, fused=fused)
+        if ds_local.examples:   # a rank may hold no video when ranks outnumber them
+            pipe = make_pipeline(model, ds_local, cfg, device=device)
+            subs, ranklists = pipe.run(host_postproc=host_postproc and not fused, fused=fused)
     finally:
         model.train(was_training)
+    parts = distributed.all_gather_obj((subs, ranklists))
+    if len(parts) > 1:
+        subs = {name: [r for p in parts for r in p[0].get(name, [])]
+                for name in dict.fromkeys(n for p in parts for n in p[0])}
+        ranklists = {q: r for p in parts for q, r in p[1].items()}
     gt = [dict(query_id=e.query_id, timestamps=e.timestamps) for e in eval_ds.examples]
     if cfg.data.dset_name == "mad":
         thresholds, topk = [0.1, 0.3, 0.5], [1, 5, 10, 50, 100]
@@ -136,11 +159,15 @@ def eval_criterion_losses(eval_loss_fn, eval_ds: GroundingDataset, cfg: ConeConf
     """Criterion terms on the eval split: the windowed batches the train
     step consumes, sampled with a fixed seed (seed, epoch 0) so every eval
     scores the same windows and the curves compare across epochs (the
-    reference's eval-loss channel, cone/inference.py:30-36, 96-98)."""
-    bsz = min(cfg.train.bsz, len(eval_ds))
+    reference's eval-loss channel, cone/inference.py:30-36, 96-98). In a
+    process group each rank builds its row block of every batch and the
+    step returns the global batch's terms: the batches are the single
+    run's, so their size must divide by the ranks (row_block raises)."""
+    bsz = _eval_loss_bsz(cfg, eval_ds)
     if bsz == 0:
         return {}
-    batches = TrainLoader(eval_ds, bsz=bsz, seed=cfg.train.seed).epoch(0)
+    lo, hi = row_block(bsz, distributed.rank(), distributed.world_size())
+    batches = TrainLoader(eval_ds, bsz=bsz, seed=cfg.train.seed).epoch(0, lo, hi)
     if cfg.train.debug:
         batches = itertools.islice(batches, 2)
     meters = defaultdict(AverageMeter)
@@ -148,6 +175,10 @@ def eval_criterion_losses(eval_loss_fn, eval_ds: GroundingDataset, cfg: ConeConf
         for k, v in to_floats(eval_loss_fn(batch, adapter_on)).items():
             meters[k].update(v)
     return {k: m.avg for k, m in meters.items()}
+
+
+def _eval_loss_bsz(cfg: ConeConfig, eval_ds: GroundingDataset) -> int:
+    return min(cfg.train.bsz, len(eval_ds))
 
 
 def _snapshot_code_version(workdir: str) -> None:
@@ -184,7 +215,8 @@ def device_seconds(events) -> float:
     return total / 1e6
 
 
-def _check_supported(cfg: ConeConfig) -> None:
+def check_supported(cfg: ConeConfig) -> None:
+    """Raise for a configuration the port cannot train, before any work."""
     if cfg.model.model_family == "tan":
         check_tan_geometry(cfg.tan, cfg.data.max_v_l)
     if cfg.train.multiscale and cfg.model.model_family == "tan":
@@ -193,17 +225,16 @@ def _check_supported(cfg: ConeConfig) -> None:
         raise NotImplementedError(
             "train.multiscale (the multiscale loader) is not ported yet: "
             "ROADMAP Queue 1 item 14")
-    if cfg.train.tp_devices > 1:
-        raise NotImplementedError(
-            "tensor parallel training (train.tp_devices > 1) is not ported yet: "
-            "ROADMAP Queue 1 item 11")
+    tp_size(cfg.train.tp_devices)
 
 
 def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[GroundingDataset],
           workdir: str, profile: bool = False, init_ckpt: Optional[str] = None,
           device="cuda", tensorboard: bool = False):
-    """Train a model of the configured family on one device; returns
-    (model, history), one record per epoch.
+    """Train a model of the configured family on one device, or data
+    parallel over the initialized process group (module docstring; the
+    caller passes the rank's device); returns (model, history), one record
+    per epoch, the same on every rank.
 
     A workdir that holds a `latest` checkpoint resumes from it: weights,
     optimizer and lr schedule (the TAN plateau controller's best score and
@@ -212,23 +243,31 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     init_ckpt: weights-only warm start from a reference-named torch file
     (the reference's --resume without --resume_all, cone/config.py:63-66),
     ignored when the run resumes. profile: trace the first epoch with
-    torch.profiler into <workdir>/profile. Dropout draws from torch's
-    generator seeded with train.seed for the run; the caller's generators
-    are left as they were."""
-    _check_supported(cfg)
+    torch.profiler into <workdir>/profile (rank 0). Dropout draws from
+    torch's generator seeded with train.seed plus the rank for the run; the
+    caller's generators are left as they were. A data-parallel run needs a
+    workdir every rank shares."""
+    check_supported(cfg)
     dev = resolve_device(device)
+    rank, world = distributed.rank(), distributed.world_size()
+    lo, hi = row_block(cfg.train.bsz, rank, world)
+    reduce = distributed.batch_reduce()
     os.makedirs(workdir, exist_ok=True)
     ckpt = CheckpointManager(workdir, cfg)
     logger = MetricLogger(workdir, tensorboard=tensorboard)
-    _snapshot_code_version(workdir)
-    logger.log_hparams(json.loads(cfg.to_json()))
+    if distributed.is_main():
+        _snapshot_code_version(workdir)
+    logger.log_hparams(json.loads(cfg.to_json()),
+                       parallel={"world_size": world, "backend": distributed.backend()})
 
     model = build_family(cfg, seed=cfg.train.seed, device=dev)
     if init_ckpt and not ckpt.exists("latest"):
         load_params(init_ckpt, model)
         print(f"warm start: weights from {init_ckpt}")
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {cfg.model.model_family}, {n_params:,} parameters on {dev}")
+    print(f"model: {cfg.model.model_family}, {n_params:,} parameters on {dev}"
+          + (f", rank {rank} of {world} ({distributed.backend()})"
+             if distributed.backend() else ""))
     loader = TrainLoader(train_ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
     if loader.steps_per_epoch() == 0:
         raise ValueError(f"{len(train_ds)} training examples make no batch of {cfg.train.bsz}")
@@ -240,17 +279,24 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
         optimizer, plateau = make_tan_optimizer(model, cfg.train)
         scheduler = None   # the plateau's state travels in `extra`, as cone_tpu's does
         step_fn = make_tan_train_step(model, optimizer, cfg.tan, cfg.loss.neg_loss,
-                                      cfg.loss.adapter_loss_coef)
+                                      cfg.loss.adapter_loss_coef, reduce)
     else:
         optimizer, scheduler = make_optimizer(model, cfg.train, loader.steps_per_epoch())
-        step_fn = make_train_step(model, optimizer, scheduler, cfg)
+        step_fn = make_train_step(model, optimizer, scheduler, cfg, reduce)
     eval_loss_fn = None
     if eval_ds is not None and cfg.eval.criterion_losses:
         eval_loss_fn = (make_tan_eval_loss_step(model, cfg.tan, cfg.loss.neg_loss,
-                                                cfg.loss.adapter_loss_coef)
-                        if tan else make_eval_loss_step(model, cfg))
+                                                cfg.loss.adapter_loss_coef, reduce)
+                        if tan else make_eval_loss_step(model, cfg, reduce))
+        n_eval = _eval_loss_bsz(cfg, eval_ds)
+        if n_eval % world:   # refused before any work, not at the first eval epoch
+            raise ValueError(f"the eval-loss batch, min(train.bsz, eval examples) = {n_eval}, "
+                             f"must divide by the {world} ranks")
 
     start_epoch, best_score, es_cnt = 0, 0.0, 0
+    distributed.assert_same_across_processes(
+        float(ckpt.exists("latest")),
+        "resume state (a data-parallel run needs a workdir every rank shares)")
     if ckpt.exists("latest"):
         epoch, extra = ckpt.restore("latest", model, optimizer, scheduler)
         start_epoch = epoch + 1
@@ -260,6 +306,9 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
             plateau.best = extra["plateau_best"]
             plateau.num_bad_epochs = int(extra["plateau_num_bad"])
         print(f"resumed from epoch {start_epoch}")
+    if world > 1:   # every rank built the same model from the same seed and files
+        distributed.assert_same_across_processes(
+            sum(float(p.detach().abs().sum()) for p in model.parameters()), "initial weights")
 
     def save(tag, epoch):
         extra = {"best_score": best_score, "es_cnt": es_cnt}
@@ -269,16 +318,17 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
 
     history = []
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
-        torch.manual_seed(cfg.train.seed)
+        torch.manual_seed(cfg.train.seed + rank)
         for epoch in range(start_epoch, cfg.train.n_epoch):
+            distributed.barrier(f"epoch {epoch}")
             meters = defaultdict(AverageMeter)
             loss_meters = defaultdict(AverageMeter)
             adapter_on = cfg.loss.adapter_loss and epoch >= cfg.train.start_epoch_for_adapter
-            batches = loader.epoch(epoch)
+            batches = loader.epoch(epoch, lo, hi)
             if cfg.train.debug:
                 batches = itertools.islice(batches, 3)
             prof = None
-            if profile and epoch == start_epoch:
+            if profile and epoch == start_epoch and distributed.is_main():
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -326,6 +376,7 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
                 res = evaluate(model, eval_ds, cfg, host_postproc=not fused, fused=fused,
                                device=dev)
                 score = res["stop_score"]
+                distributed.assert_same_across_processes(score, "stop score")
                 eval_losses = None
                 if eval_loss_fn is not None:
                     eval_losses = eval_criterion_losses(eval_loss_fn, eval_ds, cfg, adapter_on)
@@ -334,17 +385,20 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
                 if plateau is not None:
                     plateau.step(score)
                     lr_now = epoch_log["lr"] = optimizer.param_groups[0]["lr"]
+                    distributed.assert_same_across_processes(lr_now, "plateau lr")
                 epoch_log["eval_seconds"] = time.time() - t0
                 for t in res["tables"].values():
                     logger.log_text(t)
                 logger.log_eval(epoch + 1, score, lr=lr_now, losses=eval_losses)
-                save_jsonl(res["submissions"]["fusion"],
-                           os.path.join(workdir, "latest_preds.jsonl"))
+                if distributed.is_main():
+                    save_jsonl(res["submissions"]["fusion"],
+                               os.path.join(workdir, "latest_preds.jsonl"))
                 if score > best_score:
                     best_score, es_cnt = score, 0
                     save("best", epoch)
-                    save_jsonl(res["submissions"]["fusion"],
-                               os.path.join(workdir, "best_preds.jsonl"))
+                    if distributed.is_main():
+                        save_jsonl(res["submissions"]["fusion"],
+                                   os.path.join(workdir, "best_preds.jsonl"))
                 else:
                     es_cnt += 1
                     if cfg.train.max_es_cnt != -1 and es_cnt > cfg.train.max_es_cnt:

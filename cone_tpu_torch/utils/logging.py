@@ -6,7 +6,9 @@ The reference's TensorBoard writer, train.log.txt and eval tables files
 `eval_results.txt`, the same files as the JAX package's MetricLogger. A
 TensorBoard writer is attached on request (`tensorboard=True`) when the
 package is importable; importing it can pull in TensorFlow, which takes
-tens of seconds, so it is off by default.
+tens of seconds, so it is off by default. Data parallel: rank 0 writes,
+the other ranks' loggers write nothing (every rank holds the global
+metrics).
 """
 
 from __future__ import annotations
@@ -15,16 +17,19 @@ import json
 import os
 import time
 
+from cone_tpu_torch.parallel import distributed
+
 
 class MetricLogger:
     def __init__(self, workdir: str, tensorboard: bool = False):
         self.workdir = workdir
+        self.enabled = distributed.is_main()
         os.makedirs(workdir, exist_ok=True)
         self.jsonl_path = os.path.join(workdir, "metrics.jsonl")
         self.text_path = os.path.join(workdir, "train.log.txt")
         self.eval_path = os.path.join(workdir, "eval_results.txt")
         self._tb = None
-        if tensorboard:
+        if tensorboard and self.enabled:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -33,6 +38,8 @@ class MetricLogger:
                 self._tb = SummaryWriter(os.path.join(workdir, "tensorboard_log"))
 
     def _append(self, path: str, text: str) -> None:
+        if not self.enabled:
+            return
         with open(path, "a") as f:
             f.write(text + "\n")
 
@@ -68,12 +75,13 @@ class MetricLogger:
     def log_text(self, text: str) -> None:
         self._append(self.eval_path, text)
 
-    def log_hparams(self, cfg_dict: dict) -> None:
+    def log_hparams(self, cfg_dict: dict, parallel: dict = None) -> None:
         """The run's hyperparameters, once at the start of training (the
         reference writes them to TensorBoard as a markdown table,
-        cone/train.py:128)."""
+        cone/train.py:128), and its data-parallel layout."""
         self._append(self.jsonl_path,
-                     json.dumps({"ts": time.time(), "kind": "hparams", "config": cfg_dict}))
+                     json.dumps({"ts": time.time(), "kind": "hparams", "config": cfg_dict,
+                                 "parallel": parallel}))
         if self._tb:
             flat = _flatten(cfg_dict)
             md = "| key | value |\n|---|---|\n" + "\n".join(

@@ -251,10 +251,36 @@ def test_what_waits_raises_and_names_its_roadmap_item(workdir):
                 "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         t_cli._open_store(str(workdir["root"] / "features"))  # an LMDB directory
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):   # 2D-TAN on a mesh waits
-        t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d", "--mesh"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):   # tensor parallel waits
+        t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d",
+                "--set", "train.tp_devices=2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):  # the default device is the card
             t_main(["infer", "--workdir", workdir["run"]])
         with pytest.raises(RuntimeError, match="cuda"):
             evaluate(None, None, workdir["cfg"])
+
+
+def test_tan_trains_on_a_mesh(tmp_path):
+    """`train --preset tan_ego4d --mesh` (narrowed): data parallel over a
+    group of this one rank trains the same 2D-TAN run as one device."""
+    sets = ["tan.hidden_size=16", "tan.txt_hidden_size=16", "tan.lstm_layers=1",
+            "tan.map_hidden_sizes=16,16,16,16", "tan.map_kernel_sizes=3,3,3,3",
+            "tan.map_paddings=4,0,0,0",
+            "model.v_appear_feat_dim=16", "model.v_motion_feat_dim=16", "tan.v_feat_dim=16",
+            "train.bsz=8", "train.n_epoch=1", "train.eval_epoch_interval=1",
+            "train.start_epoch_for_adapter=0", "data.topk_window=4", "eval.query_chunk=8",
+            "data.dset_name=synthetic"]
+    runs = []
+    for extra in ([], ["--mesh"]):
+        wd = str(tmp_path / f"run{len(runs)}")
+        t_main(["train", "--preset", "tan_ego4d", "--synthetic", "--debug", "--device", "cpu",
+                "--workdir", wd] + [x for kv in sets for x in ("--set", kv)] + extra)
+        runs.append(load_jsonl(os.path.join(wd, "metrics.jsonl")))
+    assert not torch.distributed.is_initialized()
+    assert runs[1][0]["parallel"] == {"world_size": 1, "backend": "gloo"}
+    epochs = [[r for r in run if r["kind"] == "train_epoch"] for run in runs]
+    assert "loss_adapter" in epochs[1][0]
+    for a, b in zip(*epochs):
+        assert {k: v for k, v in a.items() if k.startswith("loss")} == \
+            {k: v for k, v in b.items() if k.startswith("loss")}

@@ -330,3 +330,81 @@ def test_golden_tan_train_trajectory_on_the_card(card):
     (golden_tan_train.LIMITS)."""
     worst = golden_tan_train.check(device="cuda")
     print(f"golden TAN trajectory on the card, worst errors: {worst}")
+
+
+def _narrow_step_setup():
+    from cone_tpu_torch.config import ConeConfig, DataConfig, ModelConfig, TrainConfig
+    from cone_tpu_torch.data import TrainLoader, make_synthetic_dataset
+
+    cfg = ConeConfig(
+        model=ModelConfig(hidden_dim=64, nheads=4, dim_feedforward=128, t_feat_dim=32,
+                          v_motion_feat_dim=32, v_appear_feat_dim=32, max_q_l=8, max_v_l=32,
+                          dropout=0.0, input_dropout=0.0),
+        data=DataConfig(max_v_l=32, max_q_l=8, clip_length=1.0, max_windows=5),
+        train=TrainConfig(lr=1e-4))
+    ds = make_synthetic_dataset(cfg.data, n_videos=4, queries_per_video=4,
+                                ctx_l_range=(100, 200), dim=32, seed=2)
+    return cfg, next(TrainLoader(ds, bsz=16, seed=0).epoch(0))
+
+
+def test_world_one_nccl_step_equals_the_plain_step(card):
+    """A group of one rank over NCCL (`train --mesh` on one card): the
+    gradient all-reduce, the span-count sum and the InfoNCE gather run and
+    are exact copies, so the step equals the step with no group."""
+    from cone_tpu_torch.parallel import distributed
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    cfg, batch = _narrow_step_setup()
+    got = []
+    for group in (False, True):
+        if group:
+            assert distributed.initialize(num_processes=1, process_id=0) == torch.device("cuda", 0)
+        try:
+            assert distributed.backend() == ("nccl" if group else None)
+            model = build_family(cfg, seed=0, device="cuda")
+            opt, sched = make_optimizer(model, cfg.train, steps_per_epoch=1)
+            step = make_train_step(model, opt, sched, cfg, distributed.batch_reduce())
+            metrics = [to_floats(step(batch, True)) for _ in range(2)]
+            got.append((metrics, {k: v.cpu() for k, v in model.state_dict().items()}))
+        finally:
+            distributed.shutdown()
+    (m0, w0), (m1, w1) = got
+    assert m0 == m1
+    for k, v in w0.items():
+        assert torch.equal(w1[k], v), k
+
+
+def test_two_gloo_ranks_share_the_card_and_agree(card, tmp_path):
+    """Two ranks on cuda:0 (NCCL refuses two ranks on one device, so the
+    group is gloo): the narrow data-parallel run of
+    cone_tpu_torch/tools/dist_worker.py, both ranks equal, each rank's
+    coarse kernel launched once per dispatch of its videos."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "out")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cone_tpu_torch.tools.dist_worker", "--out", out, "--width",
+         "narrow", "--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+         "--num_processes", "2", "--process_id", str(i), "--timeout_s", "120"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    a, b = (json.load(open(f"{out}.{i}.json")) for i in range(2))
+    assert a["backend"] == b["backend"] == "gloo" and a["device"] == b["device"] == "cuda:0"
+    for k in ("losses", "grad_norms", "terms", "param_sum", "rows", "ranklists",
+              "corpus_hits", "tan"):
+        assert a[k] == b[k], k
+    for r in (a, b):
+        assert r["dispatches"] > 0 and r["eval_launches"] == r["train_launches"] == r["dispatches"]

@@ -32,7 +32,9 @@ NEW_MODULES = [
     "cone_tpu_torch.models.losses", "cone_tpu_torch.train.optim",
     "cone_tpu_torch.train.step", "cone_tpu_torch.utils.logging",
     "cone_tpu_torch.models.tan", "cone_tpu_torch.eval.tan_pipeline",
-    "cone_tpu_torch.train.tan_step", "cone_tpu_torch.tools.golden_tan_train"]
+    "cone_tpu_torch.train.tan_step", "cone_tpu_torch.tools.golden_tan_train",
+    "cone_tpu_torch.parallel.distributed", "cone_tpu_torch.parallel.mesh",
+    "cone_tpu_torch.tools.dist_worker", "cone_tpu_torch.tools.bench_dp_step"]
 
 
 def _modules():
@@ -86,7 +88,8 @@ def test_default_device_is_the_card_and_raises_without_one():
                                    "build_family", "load_model", "cli_infer", "cli_serve",
                                    "bench_attn", "train", "cli_train", "tan_model",
                                    "tan_build_family", "tan_pipeline", "tan_cli_train",
-                                   "golden_tan_train"])
+                                   "golden_tan_train", "cli_train_mesh", "dist_initialize",
+                                   "dist_worker"])
 def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -102,7 +105,8 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     from cone_tpu_torch.config import TanConfig, tan_ego4d_config
     from cone_tpu_torch.eval.tan_pipeline import TanInferencePipeline
     from cone_tpu_torch.models.tan import ConeTanModel
-    from cone_tpu_torch.tools import golden_tan_train
+    from cone_tpu_torch.tools import dist_worker, golden_tan_train
+    from cone_tpu_torch.parallel import distributed
 
     tan_cfg = tan_ego4d_config()
     tan_cfg = tan_cfg.replace(tan=TanConfig(hidden_size=8, v_feat_dim=32, t_feat_dim=32,
@@ -138,9 +142,16 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
         "tan_cli_train": lambda: cli.main(["train", "--preset", "tan_ego4d", "--synthetic",
                                            "--workdir", str(tmp_path / "tan")]),
         "golden_tan_train": lambda: golden_tan_train.main([]),
+        # a rank's device is the card unless the caller asks for the CPU,
+        # whatever the backend
+        "cli_train_mesh": lambda: cli.main(["train", "--synthetic", "--mesh", "--workdir",
+                                            str(tmp_path / "mesh")]),
+        "dist_initialize": lambda: distributed.initialize(num_processes=1, process_id=0),
+        "dist_worker": lambda: dist_worker.main(["--out", str(tmp_path / "w")]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
+    assert not torch.distributed.is_initialized()
     # the same workdir loads when the caller asks for the CPU
     if entry == "load_model":
         assert load_model(str(tmp_path), device="cpu")[1] == 1

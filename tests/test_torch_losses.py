@@ -47,7 +47,7 @@ def _close(got, want, rel=REL, what=""):
 
 def _outputs(rng, b, nq, lv, n_aux=1, degenerate=False):
     """A model-output dict of numpy arrays: sigmoid spans, logits, saliency,
-    aux layers and a (B, B) logits_per_video."""
+    aux layers and the adapter's two unit-norm (B, 8) sides."""
     def layer():
         spans = 1 / (1 + np.exp(-rng.normal(size=(b, nq, 2))))
         if degenerate:
@@ -57,8 +57,23 @@ def _outputs(rng, b, nq, lv, n_aux=1, degenerate=False):
     out = layer()
     out["saliency_scores"] = rng.normal(size=(b, lv)).astype(np.float32)
     out["aux_outputs"] = [layer() for _ in range(n_aux)]
-    out["logits_per_video"] = rng.uniform(-1, 1, size=(b, b)).astype(np.float32)
+    out["adapter_embeds"] = list(_unit_rows(rng, 2, b, 8))
     return out
+
+
+def _unit_rows(rng, *shape):
+    x = rng.normal(size=shape)
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _jax_outputs(out):
+    """cone_tpu's criterion takes the adapter's (B, B) logits_per_video,
+    prop @ text.T, where the port takes the two sides."""
+    o = {k: v for k, v in out.items() if k != "adapter_embeds"}
+    if "adapter_embeds" in out:
+        prop, text = out["adapter_embeds"]
+        o["logits_per_video"] = prop @ text.T
+    return _jax(o)
 
 
 def _targets(rng, b, nt, lv, n_pairs=2):
@@ -154,14 +169,14 @@ def test_compute_losses_equal_cone_tpu(case):
     b, nq, nt, lv = 6, 5, 5, 24
     out = _outputs(rng, b, nq, lv, n_aux=2, degenerate=case == "degenerate")
     neg = _outputs(rng, b, nq, lv)
-    del neg["logits_per_video"]
+    del neg["adapter_embeds"]
     neg["vid_mask"] = (np.arange(lv)[None] < rng.integers(5, lv, (b, 1))).astype(np.float32)
     tgt = None if case == "label_only" else _targets(rng, b, nt, lv)
     cfg = dict(aux_loss=case != "no_aux")
     neg = None if case == "no_neg" else neg
     got = losses.compute_losses(_torch(out), None if tgt is None else _torch(tgt),
                                 None if neg is None else _torch(neg), LossConfig(**cfg))
-    want = _j_compute_losses(_jax(out), None if tgt is None else _jax(tgt),
+    want = _j_compute_losses(_jax_outputs(out), None if tgt is None else _jax(tgt),
                              None if neg is None else _jax(neg), JLossConfig(**cfg))
     assert set(got) == set(want)
     for k in want:
@@ -217,9 +232,11 @@ def test_giou_finite_with_degenerate_pred_on_padded_slot():
 
 
 def test_adapter_nce_equals_cone_tpu():
-    x = np.random.default_rng(5).uniform(-1, 1, (7, 7)).astype(np.float32)
-    _close(losses.adapter_nce_loss(torch.from_numpy(x), 0.07),
-           jlosses.adapter_nce_loss(jnp.asarray(x), 0.07))
+    """The adapter InfoNCE from the two unit-norm sides (one rank, no
+    group) against cone_tpu's over their (B, B) matrix."""
+    prop, text = _unit_rows(np.random.default_rng(5), 2, 7, 16)
+    _close(losses.adapter_nce_share(torch.from_numpy(prop), torch.from_numpy(text), 0.07),
+           jlosses.adapter_nce_loss(jnp.asarray(prop @ text.T), 0.07))
 
 
 def test_multispan_golden_criterion():
@@ -256,19 +273,20 @@ def test_gradients_equal_cone_tpu():
     weights = losses.loss_weight_dict(cfg, 2)
     t_out = _torch(out)
     leaves = [t_out["pred_spans"], t_out["pred_logits"], t_out["saliency_scores"],
-              t_out["logits_per_video"]]
+              *t_out["adapter_embeds"]]
     for x in leaves:
         x.requires_grad_(True)
     losses.total_loss(losses.compute_losses(t_out, _torch(tgt), None, cfg), weights).backward()
 
-    def f(spans, logits, sal, lpv):
-        o = dict(_jax(out), pred_spans=spans, pred_logits=logits, saliency_scores=sal,
-                 logits_per_video=lpv)
+    def f(spans, logits, sal, prop, text):
+        o = dict(_jax_outputs(out), pred_spans=spans, pred_logits=logits, saliency_scores=sal,
+                 logits_per_video=prop @ text.T)
         return jlosses.total_loss(jlosses.compute_losses(o, _jax(tgt), None, JLossConfig()),
                                   weights)
 
-    want = jax.jit(jax.grad(f, argnums=(0, 1, 2, 3)))(*(jnp.asarray(out[k]) for k in (
-        "pred_spans", "pred_logits", "saliency_scores", "logits_per_video")))
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2, 3, 4)))(
+        *(jnp.asarray(out[k]) for k in ("pred_spans", "pred_logits", "saliency_scores")),
+        *(jnp.asarray(x) for x in out["adapter_embeds"]))
     for x, w in zip(leaves, want):
         w = np.asarray(w)
         np.testing.assert_allclose(x.grad.numpy(), w, rtol=0,

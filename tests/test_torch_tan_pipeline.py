@@ -291,3 +291,61 @@ def test_moment_service_serves_a_tan_model(setups):
                               dict(video_features=feats.tolist(), top_k=3, **as_json(q)))
     loc = OnlineLocalizer(s.model, s.cfg, device="cpu")
     assert status == 200 and body["moments"] == loc.localize(feats, q["tok"], q["cls"], top_k=3)
+
+
+def test_pre_nms_pool_shortfall_is_shared_with_cone_tpu():
+    """The within-window NMS runs over the 128 best cells of a map
+    (PRE_NMS_POOL, cone_tpu's pre_nms_pool); the original 2D-TAN scans the
+    whole map until it holds proposal_top_k survivors. At the tan_ego4d
+    geometry (a 64x64 map of 1 104 valid cells, threshold 0.3, top 10), on
+    maps whose mass clusters around one cell, the pool keeps fewer than 10
+    moments where the full scan keeps 10: a divergence from the reference
+    that the port shares with cone_tpu (ROADMAP Queue 3), pinned here, not
+    fixed. What the pool keeps is the head of the full scan's list, and the
+    port's kept cells equal cone_tpu's."""
+    from cone_tpu.ops.nms import temporal_nms_device as j_nms
+    from cone_tpu_torch.config import tan_ego4d_config
+    from cone_tpu_torch.eval.tan_pipeline import (
+        NMS_THRESH_WITHIN_WINDOW, PRE_NMS_POOL, within_window_nms,
+    )
+    from cone_tpu_torch.models.tan import sparse_map_mask
+    from tests.test_tan_nms_reference import ref_2dtan_nms
+
+    tan = tan_ego4d_config().tan
+    nc, top_p = tan.num_clips, tan.proposal_top_k
+    mask = sparse_map_mask(nc, tan.num_scale_layers)
+    assert int(mask.sum()) == 1104 and (nc, top_p, NMS_THRESH_WITHIN_WINDOW) == (64, 10, 0.3)
+    rng = np.random.default_rng(0)
+    s, e = np.meshgrid(np.arange(nc), np.arange(nc), indexing="ij")
+    valid = np.flatnonzero(mask.ravel())
+    maps = []
+    for _ in range(64):   # a Gaussian around one planted cell, plus noise of 1e-3
+        c = valid[rng.integers(len(valid))]
+        width = rng.uniform(2.0, 8.0)
+        m = np.exp(-((s - c // nc) ** 2 + (e - c % nc) ** 2) / (2 * width ** 2))
+        maps.append(((0.9 * m + 1e-3 * rng.uniform(size=m.shape)) * mask).ravel())
+    prob = np.asarray(maps, np.float32)
+
+    spans, _, kept = within_window_nms(torch.from_numpy(prob), nc, top_p)
+    spans, kept = spans.numpy(), kept.numpy()
+    # cone_tpu's pool (cone_tpu/eval/tan_pipeline.py:83-101)
+    v, ridx = jax.lax.top_k(prob[:, ::-1], PRE_NMS_POOL)
+    idx = prob.shape[1] - 1 - np.asarray(ridx)
+    j_cells = np.stack([idx // nc, idx % nc + 1], -1).astype(np.float32)
+    j_spans, _, j_kept = (np.asarray(x) for x in j_nms(
+        j_cells, v, v > 0, NMS_THRESH_WITHIN_WINDOW, top_p, hull_union=False))
+    np.testing.assert_array_equal(kept, j_kept)
+    np.testing.assert_array_equal(spans[kept], j_spans[j_kept])
+
+    short = 0
+    for i, p in enumerate(prob):
+        order = np.argsort(p)[::-1]           # the reference's tie order (test.py:275-276)
+        order = order[p[order] > 0]
+        full = ref_2dtan_nms([[o // nc, o % nc + 1] for o in order], 0.3, top_p)
+        assert len(full) == top_p
+        n = int(kept[i].sum())
+        np.testing.assert_array_equal(spans[i, :n], full[:n])
+        short += n < top_p
+    print(f"pre-NMS pool {PRE_NMS_POOL}: {short} of {len(prob)} clustered maps keep fewer "
+          f"than {top_p}; the full scan keeps {top_p} on all")
+    assert short > 0

@@ -472,8 +472,19 @@ def test_cli_train_then_infer(tmp_path):
     for f in ("config.json", "model_latest.ckpt", "latest_preds.jsonl", "metrics.jsonl"):
         assert os.path.exists(os.path.join(wd, f)), f
     assert ConeConfig.load(os.path.join(wd, "config.json")) == resolved
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_main(argv + ["--mesh"])
+    with pytest.raises(NotImplementedError, match="item 11"):   # tensor parallelism waits
+        t_main(argv + ["--set", "train.tp_devices=2"])
+    # --mesh: data parallel over a group of this one rank, the same run
+    mesh_wd = wd + "_mesh"
+    t_main([mesh_wd if a == wd else a for a in argv] + ["--mesh"])
+    assert not torch.distributed.is_initialized()
+    runs = [load_jsonl(os.path.join(w, "metrics.jsonl")) for w in (wd, mesh_wd)]
+    assert runs[1][0]["parallel"] == {"world_size": 1, "backend": "gloo"}
+    assert runs[0][0]["parallel"] == {"world_size": 1, "backend": None}
+    assert ([{k: v for k, v in r.items() if k.startswith("loss")} for r in runs[0]
+             if r["kind"] == "train_epoch"]
+            == [{k: v for k, v in r.items() if k.startswith("loss")} for r in runs[1]
+                if r["kind"] == "train_epoch"])
     with pytest.raises(NotImplementedError, match="float32"):
         t_main(["train", "--preset", "ego4d_scratch", "--workdir", wd, "--device", "cpu"])
 
