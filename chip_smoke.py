@@ -39,15 +39,34 @@ Phases, each of which raises (exit code != 0) on failure:
      kernel on vs off, fused vs staged, device time and its convolution
      share); `train` at the tan_ego4d preset, bsz 32, 2 epochs of 2 steps
      with an eval epoch and its plateau step;
-  9. data parallelism at the Ego4D preset's full width, dropouts 0: (a)
-     `train --distributed` as a group of one rank over NCCL, held to the
-     non-distributed `train` of the same seed within 1e-6; (b) two ranks
+  9. data parallelism at the Ego4D preset's full width: (a) `train
+     --distributed` as a group of one rank over NCCL, dropouts 0, held to
+     the non-distributed `train` of the same seed within 1e-6; (b) two ranks
      sharing the card over gloo (cone_tpu_torch/tools/dist_worker.py, 16 rows
-     each of bsz 32), held to each other and to the single-process run:
-     losses, grad norms, weights, the gathered evaluation, the rank-sharded
-     library, one coarse launch per dispatch on each rank; ms per step and
-     the gradient all-reduce's bytes and ms;
- 10. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+     each of bsz 32) at the preset's dropouts (0.1, input 0.5), held to each
+     other and to the single-process run: losses, grad norms, weights, the
+     gathered evaluation, the rank-sharded library, one coarse launch per
+     dispatch on each rank; ms per step and the gradient all-reduce's bytes
+     and ms;
+ 10. the feature towers and the demo path, with seeded weights in the
+     released layouts, a word-hash tokenizer at CLIP's ids and CLIP's image
+     normalisation defined here, so that the phase needs no transformers:
+     (a) CLIP ViT-B/32 and the CLIP text tower at full width, card vs CPU,
+     frames/s and queries/s beside the float32 bound; (b) EgoVLP ViT-B/16 at
+     full width, card vs CPU, the golden egovlp_tower.npz on the card,
+     extract_egovlp_video over 64 clips from a checkpoint file, clips/s
+     beside the bound; (c) the demo (MomentPredictor, clip backend, tower
+     engine) over a 2-minute video at 5 fps (a real ffmpeg decode of a lavfi
+     testsrc clip when ffmpeg is on PATH, else seeded frames at the decode
+     seam) at the MAD preset's full width with the coarse kernel on: coarse
+     launches per query and the shape they ran at (the kernel is then held
+     against its plain version and timed at that shape), cold and warm
+     times (the warm call hits the feature
+     cache), moments against the CPU localizer on the card's features,
+     ranklists against the CPU and the kernel off up to near-tie flips; (d)
+     `serve --text_backend clip`'s service over HTTP: raw-text /search ==
+     the feature-carrying /search;
+ 11. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -1007,14 +1026,16 @@ def _median_warm_ms(step_ms, per_epoch):
 
 def parallel_phase(card):
     """Data parallelism on the card at the Ego4D preset's full width (hidden
-    256, 8 heads, 2+2 layers, FFN 1024, 256-d features), bsz 32, dropouts 0,
-    2 epochs x 2 steps and one eval epoch through the coarse kernel.
+    256, 8 heads, 2+2 layers, FFN 1024, 256-d features), bsz 32, 2 epochs x
+    2 steps and one eval epoch through the coarse kernel.
     (a) `train --distributed` (127.0.0.1 rendezvous, one rank: NCCL) against
     `train` without it, through the CLI in this process on its synthetic
-    set: losses and weights within 1e-6 relative. (b) two ranks on cuda:0
-    over gloo, spawned as cone_tpu_torch/tools/dist_worker.py processes,
-    against dist_worker.run in this process with no group (8 videos x 8
-    queries of 1 500-2 304 clips). A failed rank fails the phase. (c) the
+    set, dropouts 0: losses and weights within 1e-6 relative. (b) two ranks
+    on cuda:0 over gloo, spawned as cone_tpu_torch/tools/dist_worker.py
+    processes, against dist_worker.run in this process with no group (8
+    videos x 8 queries of 1 500-2 304 clips), at the preset's dropouts (0.1,
+    input 0.5): the masks are drawn for the global batch and each rank keeps
+    its rows. A failed rank fails the phase. (c) the
     step's time with and without a one-rank NCCL group, 10 warm steps a
     variant taken in turns (cone_tpu_torch/tools/bench_dp_step.py). Returns
     (measurements, coarse launches by run)."""
@@ -1202,6 +1223,511 @@ def parallel_phase(card):
           f"{med['group']:.2f}; collectives {turns['collectives']}; {time.time() - t0:.1f} s; "
           f"phase {time.time() - t_phase:.1f} s", flush=True)
     return meas, launches
+
+
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)   # CLIP's image normalisation
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+TOWER_TOL = 1e-4          # card vs CPU, projected features: times max(1, largest |feature|)
+EGOVLP_GOLDEN_ATOL = 2e-4   # tests/test_egovlp_parity.py
+
+
+class WordHashTokenizer:
+    """A stand-in for CLIP's tokenizer at its real ids (bos 49406, eos
+    49407, context 77; words crc32-hashed into 1..49405, pad 0), called as
+    a transformers tokenizer is, with neither transformers nor vocabulary
+    files installed."""
+
+    bos, eos, vocab = 49406, 49407, 49405
+
+    def __init__(self, context=77):
+        self.context = context
+
+    def __call__(self, texts, padding=True, max_length=None, truncation=True,
+                 return_tensors="np"):
+        import zlib
+
+        import numpy as np
+
+        cap = max_length or self.context
+        rows = []
+        for t in texts:
+            ids = [self.bos] + [zlib.crc32(w.encode()) % self.vocab + 1
+                                for w in t.lower().split()] + [self.eos]
+            rows.append(ids[: cap - 1] + [self.eos] if truncation and len(ids) > cap else ids)
+        width = cap if padding == "max_length" else max(map(len, rows))
+        ids = np.zeros((len(rows), width), np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)], mask[i, : len(r)] = r, 1
+        out = {"input_ids": ids, "attention_mask": mask}
+        if return_tensors == "pt":
+            import torch
+
+            out = {k: torch.from_numpy(v) for k, v in out.items()}
+        return out
+
+
+def clip_processor(images, return_tensors="np"):
+    """CLIP's image processor for frames already decoded at 224 x 224:
+    rescale to [0, 1], normalise with CLIP's mean and std, NCHW."""
+    import numpy as np
+
+    x = np.stack(images).astype(np.float32) / 255.0
+    x = (x - np.asarray(CLIP_MEAN, np.float32)) / np.asarray(CLIP_STD, np.float32)
+    return {"pixel_values": np.ascontiguousarray(x.transpose(0, 3, 1, 2))}
+
+
+def vit_flops(tokens, dim, mlp, layers):
+    """Operations of a pre-LN ViT's blocks: q, k, v, out projections, the
+    MLP, and the two attention products over all tokens."""
+    return layers * (8 * tokens * dim * dim + 4 * tokens * dim * mlp + 4 * tokens * tokens * dim)
+
+
+def clip_image_flops(c):
+    n = (c.image_size // c.patch_size) ** 2
+    return (vit_flops(n + 1, c.hidden_size, c.intermediate_size, c.num_layers)
+            + 2 * n * 3 * c.patch_size ** 2 * c.hidden_size + 2 * c.hidden_size * c.projection_dim)
+
+
+def clip_query_flops(c):
+    return (vit_flops(c.context_length, c.hidden_size, c.intermediate_size, c.num_layers)
+            + 2 * c.hidden_size * c.projection_dim)
+
+
+def egovlp_clip_flops(c):
+    """Operations of one clip through the divided space-time tower: two
+    attentions' projections and the MLP over every token, the temporal
+    groups (n groups of f queries over f + 1 keys), the spatial ones (f
+    groups of n over n + 1), the CLS rows over every token, the patch
+    embedding and the projection."""
+    n, f, d = (c.img_size // c.patch_size) ** 2, c.num_frames, c.embed_dim
+    t, mlp = 1 + f * n, int(d * c.mlp_ratio)
+    attn = 4 * d * (n * f * (f + 1) + f * n * (n + 1) + 2 * t)
+    block = 16 * t * d * d + 4 * t * d * mlp + attn
+    return (c.depth * block + 2 * f * n * 3 * c.patch_size ** 2 * d
+            + 2 * d * c.projection_dim)
+
+
+def _param_bytes(module):
+    return 4 * sum(p.numel() for p in module.parameters())
+
+
+def _bound_ms(nbytes, flops, peaks):
+    t_bytes, t_ops = nbytes / peaks["bytes"] * 1e3, flops / peaks["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _card_vs_cpu(got, want, label):
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: {got.shape} vs {want.shape}")
+    err = float(np.abs(got - want).max())
+    scale = max(1.0, float(np.abs(want).max()))
+    check(err <= TOWER_TOL * scale,
+          f"{label}: card vs CPU max abs err {err} > {TOWER_TOL} x {scale}")
+    return err, scale
+
+
+def _descends(scores, order, tol=REL_TOL):
+    import numpy as np
+
+    s = np.asarray(scores)[list(order)]
+    return bool((s[:-1] >= s[1:] - tol * np.maximum(1.0, np.abs(s[1:]))).all())
+
+
+def towers_phase(card, peaks):
+    """The feature towers and the demo path on the card (module docstring,
+    phase 10). Returns (measurements, coarse launches of the demo, the
+    (B, L, Q, D, stride, ctx_l) the demo launched the coarse kernel at)."""
+    import shutil
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import cone_tpu_torch.eval.pipeline as pipeline_mod
+    from cone_tpu_torch.config import mad_config
+    from cone_tpu_torch.convert import (
+        egovlp_state_dict, load_reference_state_dict, random_clip_text_state_dict,
+        random_clip_vision_state_dict, random_egovlp_state_dict, random_reference_state_dict)
+    from cone_tpu_torch.data.store import PackedArrayStore
+    from cone_tpu_torch.extract import video as xv
+    from cone_tpu_torch.extract.egovlp_video import egovlp_clips, extract_egovlp_video
+    from cone_tpu_torch.extract.text import clip_text_encoder
+    from cone_tpu_torch.models.clip import (
+        ClipTextConfig, ClipTextTower, ClipVisionConfig, ClipVisionTower)
+    from cone_tpu_torch.models.cone import ConeModel
+    from cone_tpu_torch.models.egovlp import EgoVlpConfig, EgoVlpVideoTower
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.serve.localizer import OnlineLocalizer
+    from cone_tpu_torch.serve.predictor import MomentPredictor
+    from cone_tpu_torch.serve.server import MomentService, make_server
+    from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+    from cone_tpu_torch.utils.device import cuda_ms
+    from cone_tpu_torch.utils.io import l2_normalize
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.time()
+    meas = {}
+    rng = np.random.default_rng(0)
+
+    def pair(tower_cls, cfg, sd):
+        out = []
+        for d in (dev, "cpu"):
+            m = tower_cls(cfg, device=d)
+            m.load_state_dict(load_reference_state_dict(sd))
+            out.append(m.eval())
+        return out
+
+    # (a) CLIP ViT-B/32 and the text tower at full width, seeded HF-layout weights
+    vcfg, tcfg = ClipVisionConfig(), ClipTextConfig()
+    vision, vision_cpu = pair(ClipVisionTower, vcfg, random_clip_vision_state_dict(vcfg, 0))
+    text, text_cpu = pair(ClipTextTower, tcfg, random_clip_text_state_dict(tcfg, 1))
+    frames = rng.integers(0, 256, (64, 224, 224, 3), np.uint8)
+    px = torch.from_numpy(clip_processor(list(frames))["pixel_values"])
+    with torch.inference_mode():
+        got = vision(px[:4].to(dev)).cpu().numpy()
+        want = vision_cpu(px[:4]).numpy()
+    v_err, v_scale = _card_vs_cpu(got, want, "CLIP vision")
+    tok = WordHashTokenizer()
+    queries = ["a person opens the fridge door", "the car drives away down the road",
+               "someone picks up a red cup from the table", "two people shake hands"]
+    t_card = clip_text_encoder(text, tok, 4, dev)(queries)
+    t_cpu = clip_text_encoder(text_cpu, tok, 4, "cpu")(queries)
+    c_err, c_scale = _card_vs_cpu(t_card[1], t_cpu[1], "CLIP text cls")
+    k_err = max(_card_vs_cpu(a, b, "CLIP text tokens")[0] for a, b in zip(t_card[0], t_cpu[0]))
+    px64 = px.to(dev)
+    with torch.inference_mode():
+        v_ms = cuda_ms(lambda: vision(px64), 5, warmup=2)
+    img_flops = clip_image_flops(vcfg)
+    v_bound, v_by = _bound_ms(
+        _param_bytes(vision) + px64.numel() * 4 + 64 * vcfg.projection_dim * 4,
+        64 * img_flops, peaks)
+    ids = torch.from_numpy(tok(queries * 16, padding="max_length")["input_ids"]).to(dev)
+    eot = (ids != 0).sum(1) - 1
+    with torch.inference_mode():
+        t_ms = cuda_ms(lambda: text(ids, eot), 5, warmup=2)
+    t_bound, t_by = _bound_ms(_param_bytes(text) + ids.numel() * 8
+                              + 64 * tcfg.context_length * tcfg.hidden_size * 4,
+                              64 * clip_query_flops(tcfg), peaks)
+    meas["clip"] = dict(vision_err=v_err, vision_scale=v_scale, text_cls_err=c_err,
+                        text_token_err=k_err, tol=TOWER_TOL, image_gflop=img_flops / 1e9,
+                        query_gflop=clip_query_flops(tcfg) / 1e9, batch64_ms=v_ms,
+                        frames_per_s=64 / v_ms * 1e3, bound_ms=v_bound, bound_by=v_by,
+                        bound_frames_per_s=64 / v_bound * 1e3, text64_ms=t_ms,
+                        queries_per_s=64 / t_ms * 1e3, text_bound_ms=t_bound)
+    print(f"towers (a): CLIP vision {vcfg} and text {tcfg}, seeded HF-layout weights; card vs "
+          f"CPU: image features max abs err "
+          f"{v_err:.2e} (<= {TOWER_TOL} x {v_scale:.2f}) on 4 frames, text cls {c_err:.2e}, "
+          f"tokens {k_err:.2e} on 4 queries; 64-frame batch {v_ms:.3f} ms -> "
+          f"{64 / v_ms * 1e3:.1f} frames/s, bound {v_bound:.3f} ms ({v_by}: "
+          f"{img_flops / 1e9:.2f} GFLOP an image at the float32 peak) -> "
+          f"{64 / v_bound * 1e3:.1f} frames/s; 64 queries {t_ms:.3f} ms -> "
+          f"{64 / t_ms * 1e3:.1f} queries/s, bound {t_bound:.3f} ms ({t_by}, "
+          f"{clip_query_flops(tcfg) / 1e9:.2f} GFLOP a query); {time.time() - t_phase:.1f} s "
+          f"into the phase [{card}]", flush=True)
+    del vision_cpu, text_cpu, px64
+
+    # (b) EgoVLP ViT-B/16 at full width: card vs CPU, the golden fixture, extraction
+    ecfg = EgoVlpConfig()
+    esd = random_egovlp_state_dict(ecfg, 2)
+    ego, ego_cpu = pair(EgoVlpVideoTower, ecfg, esd)
+    es = ecfg.img_size
+    clips = torch.from_numpy(rng.normal(size=(8, ecfg.num_frames, 3, es, es)).astype(np.float32))
+    with torch.inference_mode():
+        got = ego(clips[:2].to(dev)).cpu().numpy()
+        want = ego_cpu(clips[:2]).numpy()
+    e_err, e_scale = _card_vs_cpu(got, want, "EgoVLP")
+    del ego_cpu
+    g = dict(np.load(os.path.join(REPO, "tests", "golden", "egovlp_tower.npz")).items())
+    img, patch, dim, depth, heads, nf, proj = g["cfg"].tolist()
+    gcfg = EgoVlpConfig(img_size=img, patch_size=patch, embed_dim=dim, depth=depth,
+                        num_heads=heads, num_frames=nf, projection_dim=proj)
+    gt = EgoVlpVideoTower(gcfg, device=dev)
+    gt.load_state_dict(egovlp_state_dict({k[3:]: v for k, v in g.items() if k.startswith("w::")},
+                                         gcfg))
+    with torch.inference_mode():
+        g_err = float(np.abs(gt.eval()(torch.from_numpy(g["frames"]).to(dev)).cpu().numpy()
+                             - g["projected"]).max())
+    check(g_err <= EGOVLP_GOLDEN_ATOL, f"golden egovlp_tower.npz on the card: {g_err}")
+    x8 = clips.to(dev)
+    with torch.inference_mode():
+        e_ms = cuda_ms(lambda: ego(x8), 3, warmup=1)
+    clip_flops = egovlp_clip_flops(ecfg)
+    e_bound, e_by = _bound_ms(_param_bytes(ego) + x8.numel() * 4 + 8 * ecfg.projection_dim * 4,
+                              8 * clip_flops, peaks)
+    del x8
+    n_clips = 64
+    decoded = rng.integers(0, 256, (ecfg.num_frames * n_clips, es, es, 3), np.uint8)
+    real_decode = xv.decode_frames
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "egovlp.pth")
+        torch.save({"state_dict": {"module." + k: torch.from_numpy(v) for k, v in esd.items()}},
+                   ckpt)
+        out = os.path.join(tmp, "egovlp.cfs")
+        xv.decode_frames = lambda path, fps, size=224: decoded
+        try:
+            t0 = time.time()
+            extract_egovlp_video({"movie": "movie.mp4"}, out, ckpt, clip_batch=8, cfg=ecfg,
+                                 frames_per_clip=ecfg.num_frames, device=dev)
+            sync()
+            x_s = time.time() - t0
+        finally:
+            xv.decode_frames = real_decode
+        feats = PackedArrayStore(out).get("movie")
+    check(feats.shape == (n_clips, ecfg.projection_dim) and np.isfinite(feats).all(),
+          f"extract_egovlp_video store: {feats.shape}")
+    clip0 = egovlp_clips(decoded[: ecfg.num_frames], ecfg.num_frames)   # (1, F, H, W, 3)
+    with torch.inference_mode():
+        first = ego(torch.from_numpy(clip0.transpose(0, 1, 4, 2, 3).copy()).to(dev)).cpu().numpy()
+    x_err = float(np.abs(first[0] - feats[0]).max())
+    check(x_err <= TOWER_TOL * max(1.0, float(np.abs(first).max())),
+          f"the extracted first clip differs from the tower's forward by {x_err}")
+    meas["egovlp"] = dict(card_vs_cpu_err=e_err, scale=e_scale, golden_err=g_err,
+                          clip_gflop=clip_flops / 1e9, batch8_ms=e_ms,
+                          clips_per_s=8 / e_ms * 1e3, bound_ms=e_bound, bound_by=e_by,
+                          bound_clips_per_s=8 / e_bound * 1e3, extract_clips=n_clips,
+                          extract_s=x_s, extract_clips_per_s=n_clips / x_s)
+    print(f"towers (b): EgoVLP {ecfg} ({1 + ecfg.num_frames * (es // ecfg.patch_size) ** 2} "
+          f"tokens), seeded weights; card vs CPU max abs err {e_err:.2e} (<= "
+          f"{TOWER_TOL} x {e_scale:.2f}) on 2 clips; golden egovlp_tower.npz on the card "
+          f"{g_err:.2e} (<= {EGOVLP_GOLDEN_ATOL}); 8-clip batch {e_ms:.3f} ms -> "
+          f"{8 / e_ms * 1e3:.1f} clips/s, bound {e_bound:.3f} ms ({e_by}: "
+          f"{clip_flops / 1e9:.1f} GFLOP a clip) -> {8 / e_bound * 1e3:.1f} clips/s; "
+          f"extract_egovlp_video of {n_clips} clips (clip_batch 8, checkpoint file, decode "
+          f"injected) {x_s:.3f} s -> {n_clips / x_s:.1f} clips/s end to end, store read back "
+          f"({feats.shape}); {time.time() - t_phase:.1f} s into the phase [{card}]", flush=True)
+    del ego, gt
+    torch.cuda.empty_cache()
+
+    # (c) the demo path at the MAD preset's full width, the coarse kernel on
+    cfg = mad_config()
+    cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, use_pallas_coarse=True))
+    model = ConeModel(cfg.model, device=dev)
+    wsd = load_reference_state_dict(random_reference_state_dict(cfg.model, seed=3))
+    model.load_state_dict(wsd)
+    fps, seconds = 1.0 / cfg.data.clip_length, 120
+    tmp = tempfile.mkdtemp()
+    try:
+        movie = os.path.join(tmp, "demo.mp4")
+        if shutil.which("ffmpeg"):
+            subprocess.run(["ffmpeg", "-nostdin", "-loglevel", "error", "-f", "lavfi", "-i",
+                            f"testsrc=duration={seconds}:size=320x240:rate=25", "-c:v",
+                            "mpeg4", "-q:v", "5", movie], check=True, timeout=300)
+            source = "ffmpeg decode of a lavfi testsrc clip"
+            decode = None
+        else:
+            demo_frames = rng.integers(0, 256, (int(seconds * fps), 224, 224, 3), np.uint8)
+            decode = lambda path, fps_, size=224: demo_frames   # noqa: E731
+            source = "seeded frames injected at extract.video.decode_frames (no ffmpeg on PATH)"
+        decode_calls = []
+        inner = decode or real_decode
+
+        def counted(path, fps_, size=224):
+            t0 = time.time()
+            out = inner(path, fps_, size)
+            decode_calls.append(time.time() - t0)
+            return out
+        xv.decode_frames = counted
+        # the shapes the demo launches the coarse kernel at, for main()'s
+        # kernel-vs-plain check and timing at the same shape
+        coarse_shapes = set()
+        real_coarse = pipeline_mod.coarse_segment_max
+
+        def recorded(feats, cls, ctx_l, stride, *a, **kw):
+            coarse_shapes.add((*feats.shape[:2], cls.shape[1], feats.shape[2], int(stride)))
+            return real_coarse(feats, cls, ctx_l, stride, *a, **kw)
+        pipeline_mod.coarse_segment_max = recorded
+        tower_calls = []
+        hook = vision.register_forward_hook(lambda *a: tower_calls.append(1))
+        try:
+            proc_s = []
+
+            def timed_processor(images, return_tensors="np"):
+                t0 = time.time()
+                out = clip_processor(images, return_tensors)
+                proc_s.append(time.time() - t0)
+                return out
+            pred = MomentPredictor(model, cfg, backend="clip", engine="tower",
+                                   clip_models={"vision": vision, "text": text,
+                                                "processor": timed_processor, "tokenizer": tok},
+                                   cache_dir=os.path.join(tmp, "cache"), device=dev)
+            # time the predictor's two extraction steps inside localize_moment
+            spans_s = {"video": [], "text": []}
+            for name in ("video", "text"):
+                def timed(arg, fn=getattr(pred, f"{name}_features"), name=name):
+                    t0 = time.time()
+                    out = fn(arg)
+                    sync()
+                    spans_s[name].append(time.time() - t0)
+                    return out
+                setattr(pred, f"{name}_features", timed)
+            demo_q = queries
+            per_query = []
+            results = []
+            for i, q in enumerate(demo_q):
+                co.coarse_segment_max.launches = 0
+                t0 = time.time()
+                moments = pred.localize_moment(movie, q)
+                sync()
+                wall = time.time() - t0
+                per_query.append(dict(wall_s=wall, launches=co.coarse_segment_max.launches,
+                                      tower_forwards=len(tower_calls),
+                                      video_s=spans_s["video"][-1], text_s=spans_s["text"][-1],
+                                      localize_s=wall - spans_s["video"][-1]
+                                      - spans_s["text"][-1]))
+                results.append(moments)
+            cold = per_query[0]
+            video = pred.video_features(movie)
+            n_frames = len(video)
+            check(n_frames >= int(seconds * fps) - 2, f"demo decoded {n_frames} frames")
+            check(len(decode_calls) == 1
+                  and all(p["tower_forwards"] == cold["tower_forwards"] for p in per_query),
+                  f"warm calls decoded or ran the vision tower again: {per_query}, "
+                  f"{len(decode_calls)} decodes")
+            check(all(p["launches"] >= 1 for p in per_query),
+                  f"a demo query launched no coarse kernel: {per_query}")
+            check(len(coarse_shapes) == 1,
+                  f"the demo launched the coarse kernel at {sorted(coarse_shapes)}, want one shape")
+            (b_, l_pad, q_, d_, stride_), = coarse_shapes
+            coarse_shape = (b_, l_pad, q_, d_, stride_, [n_frames] * b_)
+            # the same features through the localizer on the CPU, and on the card
+            # with the kernel off. The CPU's fine stage takes one query a
+            # dispatch (the preset's 32 pad it to 960 windows, seconds on a
+            # CPU); a query's windows do not see the padding
+            model_cpu = ConeModel(cfg.model, device="cpu")
+            model_cpu.load_state_dict(wsd)
+            loc_cpu = OnlineLocalizer(
+                model_cpu, cfg.replace(eval=dataclasses.replace(cfg.eval, query_chunk=1)),
+                device="cpu")
+            # the demo again with the kernel off: the same cached features
+            cfg_off = cfg.replace(eval=dataclasses.replace(cfg.eval, use_pallas_coarse=False))
+            pred_off = MomentPredictor(model, cfg_off, backend="clip", engine="tower",
+                                       clip_models=pred._clip_models,
+                                       cache_dir=os.path.join(tmp, "cache"), device=dev)
+            loc_off = pred_off.localizer
+            vn = l2_normalize(video)
+            span_err = score_err = 0.0
+            flips_cpu = flips_off = 0
+            t_text, t_loc = [], []
+            for q, moments in zip(demo_q, results):
+                t0 = time.time()
+                tk, cl = pred.text_features(q)
+                t_text.append(time.time() - t0)
+                args = (vn, l2_normalize(tk), l2_normalize(cl[None])[0])
+                t0 = time.time()
+                card_m, card_rl = pred.localizer.localize_ranked(*args, query=q)
+                sync()
+                t_loc.append(time.time() - t0)
+                check(card_m == moments, f"{q}: localize_ranked differs from the demo's answer")
+                cpu_m, cpu_rl = loc_cpu.localize_ranked(*args, query=q)
+                off_m, off_rl = loc_off.localize_ranked(*args, query=q)
+                check(pred_off.localize_moment(movie, q) == off_m,
+                      f"{q}: the demo with the kernel off differs from its localizer")
+                a, b = np.asarray(card_m, np.float64), np.asarray(cpu_m, np.float64)
+                check(a.shape == b.shape and len(a) >= 1, f"{q}: {a.shape} vs CPU {b.shape}")
+                span_err = max(span_err, float(np.abs(a[:, :2] - b[:, :2]).max()))
+                score_err = max(score_err, float(np.abs(a[:, 2:] - b[:, 2:]).max()))
+                # the plain path's window scores order both ranklists: only
+                # near-ties may swap
+                pipe = loc_off.pipe
+                appear, a_scale, _, _, ctx_l = pipe._device_video("v0")
+                with torch.inference_mode():
+                    adapted = pipe._adapt(pipe._decode(appear, a_scale))[None]
+                    clsq = torch.from_numpy(args[2]).to(dev)[None, None]
+                    s, _ = window_scores_from_frame_scores(
+                        clsq @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device=dev),
+                        pipe.stride, num_windows(ctx_l, pipe.stride))
+                s = s[0, 0].cpu().numpy()
+                for other, rl in (("CPU", cpu_rl), ("kernel off", off_rl)):
+                    if rl != card_rl:
+                        check(_descends(s, card_rl) and _descends(s, rl),
+                              f"{q}: ranklists card vs {other} differ beyond near-ties")
+                flips_cpu += sum(x != y for x, y in zip(card_rl, cpu_rl))
+                flips_off += sum(x != y for x, y in zip(card_rl, off_rl))
+            check(span_err <= SPAN_ATOL and score_err <= SCORE_ATOL,
+                  f"demo on the card vs the CPU localizer: spans {span_err}, scores {score_err}")
+            check(len(decode_calls) == 1 and len(tower_calls) == cold["tower_forwards"],
+                  "the demo with the kernel off decoded or ran the vision tower again")
+            launches = sum(p["launches"] for p in per_query)
+            warm = [p["wall_s"] for p in per_query[1:]]
+            meas["demo"] = dict(
+                source=source, frames=n_frames, fps=fps, queries=len(demo_q),
+                cold_s=cold["wall_s"], warm_s=warm, decode_s=decode_calls[0],
+                cold_video_s=cold["video_s"], preprocess_s=float(sum(proc_s)),
+                cold_text_s=cold["text_s"], cold_localize_s=cold["localize_s"],
+                warm_video_s=[p["video_s"] for p in per_query[1:]],
+                warm_text_s=[p["text_s"] for p in per_query[1:]],
+                warm_localize_s=[p["localize_s"] for p in per_query[1:]],
+                text_s=float(np.median(t_text)), localize_s=float(np.median(t_loc)),
+                coarse_launches_per_query=[p["launches"] for p in per_query],
+                coarse_shape=dict(B=b_, L=l_pad, Q=q_, D=d_, stride=stride_, ctx_l=n_frames),
+                span_err_vs_cpu=span_err, score_err_vs_cpu=score_err,
+                ranklist_flips_vs_cpu=flips_cpu, ranklist_flips_kernel_off=flips_off,
+                vision_forwards=per_query[0]["tower_forwards"])
+            print(f"towers (c): demo at the MAD preset's full width (512-d video, text and "
+                  f"CLS, hidden {cfg.model.hidden_dim}, random seeded weights, coarse kernel "
+                  f"on): a {seconds} s video at {fps:g} fps, {n_frames} frames ({source}), "
+                  f"padded to the {min(b for b in cfg.eval.ctx_buckets if b >= n_frames)} "
+                  f"bucket; {len(demo_q)} queries: coarse launches per query "
+                  f"{meas['demo']['coarse_launches_per_query']} at B {b_}, L {l_pad}, Q {q_}, "
+                  f"D {d_}, stride {stride_}; cold query {cold['wall_s']:.3f} s"
+                  f" = video features {cold['video_s']:.3f} s (decode {decode_calls[0]:.3f} s, "
+                  f"host preprocessing {sum(proc_s):.3f} s, the rest {cold['tower_forwards']} "
+                  f"vision forwards and copies) + text {cold['text_s'] * 1e3:.2f} ms + localize "
+                  f"{cold['localize_s'] * 1e3:.2f} ms; warm queries "
+                  f"{[round(w, 4) for w in warm]} s (feature cache hit, no decode, no vision "
+                  f"forward: video {[round(p['video_s'] * 1e3, 2) for p in per_query[1:]]} ms, "
+                  f"text {[round(p['text_s'] * 1e3, 2) for p in per_query[1:]]} ms, localize "
+                  f"{[round(p['localize_s'] * 1e3, 2) for p in per_query[1:]]} ms); again on "
+                  f"the same features: text {meas['demo']['text_s'] * 1e3:.2f} ms, localize "
+                  f"{meas['demo']['localize_s'] * 1e3:.2f} ms (medians, host clock); vs "
+                  f"the CPU localizer on the card's features: spans {span_err:.2e} (<= "
+                  f"{SPAN_ATOL}), scores {score_err:.2e} (<= {SCORE_ATOL}), {flips_cpu} near-tie "
+                  f"ranklist flips; kernel off: {flips_off} near-tie flips; "
+                  f"{time.time() - t_phase:.1f} s into the phase [{card}]", flush=True)
+
+            # (d) serve --text_backend clip: raw text over HTTP == features
+            svc = MomentService(model, cfg, text_encoder=pred.text_features, device=dev)
+            svc.retriever.add_video("demo", video)
+            srv = make_server(svc, host="127.0.0.1", port=0)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+                def call(payload):
+                    req = urllib.request.Request(base + "/search",
+                                                 data=json.dumps(payload).encode(),
+                                                 headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        return json.loads(r.read())["moments"]
+                for q in demo_q:
+                    tk, cl = pred.text_features(q)
+                    raw = call(dict(query=q))
+                    check(raw and raw == call(dict(query=q, token_features=tk.tolist(),
+                                                   cls_feature=cl.tolist())),
+                          f"{q}: raw-text /search differs from the feature-carrying one")
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=30)
+            check(not thread.is_alive(), "the HTTP server thread did not stop")
+            print(f"towers (d): MomentService(text_encoder=MomentPredictor.text_features) "
+                  f"behind make_server: {len(demo_q)} raw-text /search answers equal the "
+                  f"feature-carrying ones; phase {time.time() - t_phase:.1f} s", flush=True)
+        finally:
+            hook.remove()
+            xv.decode_frames = real_decode
+            pipeline_mod.coarse_segment_max = real_coarse
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, vision, text
+    torch.cuda.empty_cache()
+    return meas, launches, coarse_shape
 
 
 def _self_device_us(evt):
@@ -1470,6 +1996,13 @@ def main():
     # 9. data parallelism
     parallel, par_launches = parallel_phase(smi)
 
+    # 10. the feature towers and the demo path
+    towers, demo_launches, (b, l_pad, q, d, stride, ctx) = towers_phase(smi, peaks)
+    # the kernel against its plain version, and timed, at the shape the demo
+    # launched it at
+    demo_case = coarse_case("mad-demo", b, q, l_pad, d, stride, ctx, peaks, 500, gen)
+    cases.append(demo_case)
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -1479,10 +2012,11 @@ def main():
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
         replaces="cone_tpu/ops/pallas_coarse.py:66",
         launches=(launches + train_launches + tan_launches + tan_train_launches
-                  + sum(par_launches.values())),
+                  + sum(par_launches.values()) + demo_launches),
         launches_by_path={"inference": launches, "train_eval": train_launches,
                           "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
-                          **{f"parallel_{k}": v for k, v in par_launches.items()}},
+                          **{f"parallel_{k}": v for k, v in par_launches.items()},
+                          "demo": demo_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -1491,7 +2025,10 @@ def main():
                  max_abs_err=mad_case["max_abs_err"], **{k: mad_case[k] for k in keys}),
         tan={label: dict(shape=f"B {c['B']}, Q {c['Q']}, L {c['L']}, D {c['D']}, stride "
                                f"{c['stride']}", max_abs_err=c["max_abs_err"],
-                         **{k: c[k] for k in keys}) for label, c in tan_cases.items()})]
+                         **{k: c[k] for k in keys}) for label, c in tan_cases.items()},
+        demo=dict(shape=f"B {b}, Q {q}, L {l_pad}, D {d}, stride {stride}, ctx_l {ctx[0]}",
+                  launches=demo_launches,
+                  max_abs_err=demo_case["max_abs_err"], **{k: demo_case[k] for k in keys}))]
     a32, a16 = attn["results"]["float32"], attn["results"]["bfloat16"]
     kernels.append(dict(
         name="masked_attention", route="cuda",
@@ -1502,7 +2039,7 @@ def main():
         bfloat16=dict(max_abs_err=attn_err["bfloat16"], **{k: a16[k] for k in keys})))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
-                      "parallel": parallel, "card": smi}))
+                      "parallel": parallel, "towers": towers, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""Command-line entry points: train / infer / eval / ensemble / serve.
+"""Command-line entry points: train / infer / eval / ensemble / serve /
+demo / extract-text / extract-video.
 
-    python -m cone_tpu_torch <train|infer|eval|ensemble|serve> ... [--device cuda]
+    python -m cone_tpu_torch <command> ... [--device cuda]
 
 Counterparts of the reference's cone/inference.py CLI and its standalone
 evaluators, driven by the workdir's typed ConeConfig (config.json); any
@@ -28,8 +29,15 @@ host name and card count after the rendezvous: NCCL when no host runs
 more ranks than it has cards, gloo on the CPU (--device cpu) and when
 ranks share a card. A 2D-TAN workdir infers and serves like a CONE one.
 
-Not ported yet: demo, reformat, extract-*, convert-store; of train, the
-bfloat16 *_scratch presets and tensor parallelism (train.tp_devices > 1).
+`demo` (a video file and query texts -> ranked moments), `extract-video`,
+`extract-text` and `serve --text_backend` run the feature towers on the
+device (extract/, serve/predictor.py). Their engines: "tower" (default) is
+the port's own module (models/clip.py), the counterpart of cone_tpu's
+"flax"; "hf" is the transformers torch model, the counterpart of its
+"torch". Both load released weights through transformers by name.
+
+Not ported yet: reformat, convert-store; of train, the bfloat16 *_scratch
+presets and tensor parallelism (train.tp_devices > 1).
 """
 
 from __future__ import annotations
@@ -386,19 +394,27 @@ def cmd_ensemble(args):
 def cmd_serve(args):
     """HTTP serving front end over a trained workdir (serve/server.py):
     /search across the resident corpus, /localize for one-shot videos,
-    /add_video, /healthz, /stats."""
-    if args.text_backend:
-        raise NotImplementedError(
-            "--text_backend: raw-text queries need the CLIP/EgoVLP text towers, "
-            "which are not ported yet (ROADMAP Queue 1 item 12); send "
-            "token_features and cls_feature with each request")
+    /add_video, /healthz, /stats. With --text_backend, requests may carry
+    the query text alone: the predictor's text tower encodes it on the
+    device."""
     from cone_tpu_torch.serve.server import MomentService, make_server
     from cone_tpu_torch.train.checkpoint import load_config
 
+    _refuse_unused(args, args.text_backend, "--text_backend",
+                   {"clip": ["egovlp_checkpoint"], "egovlp": ["text_engine"],
+                    None: ["text_engine", "egovlp_checkpoint"]})
     cfg = _apply_overrides(load_config(args.workdir), args.set)
     model = _restore(args, cfg)
     ds = _open_dataset(cfg, args.preload_path) if args.preload_path else None
-    service = MomentService(model, cfg, dataset=ds,
+    encoder = None
+    if args.text_backend:
+        from cone_tpu_torch.serve.predictor import MomentPredictor
+
+        pred = MomentPredictor(model, cfg, backend=args.text_backend,
+                               egovlp_checkpoint=args.egovlp_checkpoint,
+                               engine=args.text_engine or "tower", device=args.device)
+        encoder = pred.text_features
+    service = MomentService(model, cfg, text_encoder=encoder, dataset=ds,
                             batch_window_ms=args.batch_window_ms,
                             max_batch=args.max_batch, device=args.device)
     if args.load_corpus:
@@ -411,6 +427,108 @@ def cmd_serve(args):
         srv.serve_forever()
     finally:
         srv.server_close()
+
+
+def cmd_demo(args):
+    """The reference's demo (run_on_video/run.py run_example): one video
+    file + query texts -> ranked moments printed, one block per query.
+    Extracted video features cache to --cache_dir like the reference's .pt
+    cache (run.py:30-38)."""
+    from cone_tpu_torch.serve.predictor import MomentPredictor
+    from cone_tpu_torch.train.checkpoint import load_config
+
+    _refuse_unused(args, args.backend, "--backend",
+                   {"clip": ["egovlp_checkpoint"], "egovlp": ["clip_engine"]})
+    cfg = _apply_overrides(load_config(args.workdir), args.set)
+    model = _restore(args, cfg)
+    pred = MomentPredictor(model, cfg, backend=args.backend,
+                           engine=args.clip_engine or "tower",
+                           egovlp_checkpoint=args.egovlp_checkpoint,
+                           cache_dir=args.cache_dir, device=args.device)
+    for query in args.query:
+        print("text_query: ", query)
+        moments = pred.localize_moment(args.video, query, top_k=args.top_k)
+        # the reference's output block (run.py:59-62); rows are
+        # [st, ed, prop, match, fusion], fusion-ranked
+        print("-----------------------------prediction"
+              "------------------------------------")
+        for i, m in enumerate(moments):
+            print("Rank %d, moment boundary in seconds: %.4f %.4f, score: %.4f"
+                  % (i + 1, m[0], m[1], m[4]))
+    return pred
+
+
+def cmd_extract_video(args):
+    """Video files -> one packed .cfs of clip features: CLIP frames
+    (the reference's feature_extraction/clip_extractor.py) or EgoVLP clips
+    (run_on_video/egovlp_extrator.py), on the device."""
+    _refuse_unused(args, args.backend, "--backend",
+                   {"clip": ["checkpoint"], "egovlp": ["engine", "model"]})
+    videos = {}
+    for spec in args.videos:
+        if "=" in spec:
+            clip_id, path = spec.split("=", 1)
+        else:
+            clip_id, path = os.path.splitext(os.path.basename(spec))[0], spec
+        if clip_id in videos:
+            raise SystemExit(f"duplicate clip_id {clip_id!r} ({videos[clip_id]} vs {path}):"
+                             " disambiguate with explicit clip_id=path specs")
+        videos[clip_id] = path
+    if args.backend == "egovlp":
+        from cone_tpu_torch.extract.egovlp_video import extract_egovlp_video
+
+        if not args.checkpoint:
+            raise SystemExit("--checkpoint is required for --backend egovlp")
+        extract_egovlp_video(videos, args.out, args.checkpoint,
+                             fps=args.fps if args.fps is not None else 1.875,
+                             clip_batch=args.batch_size if args.batch_size is not None else 8,
+                             device=args.device)
+    else:
+        from cone_tpu_torch.extract.video import extract_clip_video
+
+        extract_clip_video(videos, args.out,
+                           model_name=args.model or "openai/clip-vit-base-patch32",
+                           fps=args.fps if args.fps is not None else 5.0,
+                           batch_size=args.batch_size if args.batch_size is not None else 64,
+                           device=args.device, engine=args.engine or "tower")
+    print(f"wrote {len(videos)} video feature rows to {args.out}")
+
+
+def cmd_extract_text(args):
+    """A query jsonl -> tokens.cfs + cls.cfs (CLIP, RoBERTa or EgoVLP's
+    DistilBERT text tower), on the device."""
+    from cone_tpu_torch.extract import text as tx
+
+    _refuse_unused(args, args.backend, "--backend",
+                   {"clip": ["checkpoint"], "roberta": ["engine", "checkpoint"],
+                    "egovlp": ["engine"]})
+    if args.backend == "clip":
+        tx.extract_clip_text(args.input, args.out,
+                             model_name=args.model or "openai/clip-vit-base-patch32",
+                             device=args.device, engine=args.engine or "tower")
+    elif args.backend == "roberta":
+        tx.extract_roberta_text(args.input, args.out, model_name=args.model or "roberta-base",
+                                device=args.device)
+    else:
+        if not args.checkpoint:
+            raise SystemExit("--checkpoint is required for --backend egovlp")
+        tx.extract_egovlp_text(args.input, args.out, args.checkpoint,
+                               model_name=args.model or "distilbert-base-uncased",
+                               device=args.device)
+    print(f"wrote text stores to {args.out}")
+
+
+ENGINE_HELP = ("tower = the port's CLIP module (cone_tpu's flax), hf = the transformers"
+               " torch model (cone_tpu's torch); both run on --device")
+
+
+def _refuse_unused(args, backend, flag, unused):
+    """Refuse the options that `backend` would ignore ({backend: [dest]})
+    rather than run without them."""
+    given = [f"--{dest}" for dest in unused.get(backend, []) if getattr(args, dest) is not None]
+    if given:
+        raise SystemExit(f"{', '.join(given)}: not used with {flag} {backend}" if backend
+                         else f"{', '.join(given)}: not used without {flag}")
 
 
 def _add_device(p):
@@ -495,8 +613,11 @@ def main(argv=None):
                    help="jsonl whose videos preload into the corpus (uses"
                         " the workdir config's feature stores)")
     s.add_argument("--text_backend", choices=["clip", "egovlp"],
-                   help="accept raw-text queries (not ported yet: raises;"
+                   help="accept raw-text queries, encoded on the device (omit:"
                         " requests must carry token/cls features)")
+    s.add_argument("--text_engine", choices=["tower", "hf"],
+                   help="--text_backend clip: " + ENGINE_HELP + " (default tower)")
+    s.add_argument("--egovlp_checkpoint", help="released egovlp.pth (--text_backend egovlp)")
     s.add_argument("--batch_window_ms", type=float, default=0.0,
                    help="dynamic /search micro-batching: concurrent requests"
                         " arriving within this window share one device sweep"
@@ -509,6 +630,54 @@ def main(argv=None):
                         " serving library from at startup")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
+
+    d = sub.add_parser("demo", help="video file + query text -> ranked"
+                       " moments (the reference's run_on_video/run.py)")
+    d.add_argument("--workdir", required=True)
+    d.add_argument("--ckpt", default="best")
+    d.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
+    d.add_argument("--video", required=True, help="video file (ffmpeg)")
+    d.add_argument("--query", action="append", required=True,
+                   help="query text; repeat for several queries")
+    d.add_argument("--backend", choices=["clip", "egovlp"], default="egovlp",
+                   help="feature backbone (the reference demo is EgoVLP)")
+    d.add_argument("--clip_engine", choices=["tower", "hf"],
+                   help="--backend clip: " + ENGINE_HELP + " (default tower)")
+    d.add_argument("--egovlp_checkpoint", help="released egovlp.pth (--backend egovlp)")
+    d.add_argument("--cache_dir", default="feature_cache",
+                   help="extracted-feature cache (run.py:30-38)")
+    d.add_argument("--top_k", type=int, help="moments to print per query")
+    _add_device(d)
+    d.set_defaults(fn=cmd_demo)
+
+    e = sub.add_parser("extract-text", help="query jsonl -> text feature stores")
+    e.add_argument("--input", required=True, help="query jsonl")
+    e.add_argument("--out", required=True, help="output dir (tokens.cfs + cls.cfs)")
+    e.add_argument("--backend", choices=["clip", "roberta", "egovlp"], required=True)
+    e.add_argument("--model", help="transformers model name")
+    e.add_argument("--checkpoint", help="EgoVLP checkpoint (its txt_proj)")
+    e.add_argument("--engine", choices=["tower", "hf"],
+                   help="--backend clip: " + ENGINE_HELP + " (default tower); RoBERTa and"
+                        " DistilBERT always run the transformers model")
+    _add_device(e)
+    e.set_defaults(fn=cmd_extract_text)
+
+    ev = sub.add_parser("extract-video", help="video files -> clip-feature .cfs store")
+    ev.add_argument("--videos", required=True, nargs="+",
+                    help="clip_id=path pairs, or bare paths (id = basename)")
+    ev.add_argument("--out", required=True, help="output .cfs path")
+    ev.add_argument("--backend", choices=["clip", "egovlp"], default="clip")
+    ev.add_argument("--checkpoint", help="EgoVLP .pth (--backend egovlp)")
+    ev.add_argument("--model", help="transformers CLIP model name")
+    ev.add_argument("--fps", type=float,
+                    help="default: 5 frames/s for clip (MAD-style, train_mad.sh), 1.875"
+                         " for egovlp")
+    ev.add_argument("--batch_size", type=int,
+                    help="default: 64 frames (clip) / 8 clips (egovlp)")
+    ev.add_argument("--engine", choices=["tower", "hf"],
+                    help="--backend clip: " + ENGINE_HELP + " (default tower)")
+    _add_device(ev)
+    ev.set_defaults(fn=cmd_extract_video)
 
     v = sub.add_parser("eval", help="recall tables from submission files"
                                     " (standalone, no model)")

@@ -15,6 +15,14 @@ CONE_TAN names): tan_params_from_jax, tan_params_to_jax,
 load_reference_tan_state_dict, random_reference_tan_state_dict. Conv
 kernels transpose between flax's (k..., in, out) and torch's
 (out, in, k...); the LSTM maps as tools/convert_tan_ckpt.py:72-84 does.
+
+The feature towers (models/clip.py, models/egovlp.py):
+clip_vision_params_from_jax, clip_text_params_from_jax,
+egovlp_params_from_jax (cone_tpu trees -> the port's state dicts; the
+patch convs' HWIO kernels become OIHW); read_egovlp_checkpoint,
+egovlp_state_dict and load_egovlp_state_dict (a released EgoVLP
+checkpoint -> the tower's state dict); random_clip_vision_state_dict,
+random_clip_text_state_dict, random_egovlp_state_dict.
 """
 
 from __future__ import annotations
@@ -357,3 +365,160 @@ def random_reference_tan_state_dict(cfg: TanConfig, seed: int = 0) -> dict:
     for i, k in enumerate(cfg.map_kernel_sizes):
         out[f"map_layer.convs.{i}.weight"] *= k * k
     return out
+
+
+# ------------------------------------------------------- feature towers
+
+def _clip_layers(out, prefix, params):
+    for key in sorted(k for k in params if k.startswith("layer_")):
+        p, name = params[key], f"{prefix}.layers.{key.split('_')[1]}"
+        _ln(out, f"{name}.layer_norm1", p["layer_norm1"])
+        _ln(out, f"{name}.layer_norm2", p["layer_norm2"])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(out, f"{name}.self_attn.{proj}", p["self_attn"][proj])
+        _dense(out, f"{name}.mlp.fc1", p["fc1"])
+        _dense(out, f"{name}.mlp.fc2", p["fc2"])
+
+
+def clip_vision_params_from_jax(params) -> dict:
+    """cone_tpu ClipVisionTower params (numpy or jax arrays) -> the port's
+    ClipVisionTower state dict (HF names) of float32 torch tensors. The
+    patch conv's HWIO kernel becomes OIHW."""
+    vm = "vision_model"
+    out = {f"{vm}.embeddings.patch_embedding.weight":
+           _np(params["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1),
+           f"{vm}.embeddings.class_embedding": _np(params["class_embedding"]),
+           f"{vm}.embeddings.position_embedding.weight": _np(params["position_embedding"]),
+           "visual_projection.weight": _np(params["visual_projection"]["kernel"]).T}
+    _ln(out, f"{vm}.pre_layrnorm", params["pre_layernorm"])
+    _ln(out, f"{vm}.post_layernorm", params["post_layernorm"])
+    _clip_layers(out, f"{vm}.encoder", params)
+    return load_reference_state_dict(out)
+
+
+def clip_text_params_from_jax(params) -> dict:
+    """cone_tpu ClipTextTower params -> the port's ClipTextTower state dict
+    (HF names) of float32 torch tensors."""
+    tm = "text_model"
+    out = {f"{tm}.embeddings.token_embedding.weight": _np(params["token_embedding"]),
+           f"{tm}.embeddings.position_embedding.weight": _np(params["position_embedding"]),
+           "text_projection.weight": _np(params["text_projection"]["kernel"]).T}
+    _ln(out, f"{tm}.final_layer_norm", params["final_layer_norm"])
+    _clip_layers(out, f"{tm}.encoder", params)
+    return load_reference_state_dict(out)
+
+
+def egovlp_params_from_jax(params) -> dict:
+    """cone_tpu EgoVlpVideoTower params ({"video_model", "vid_proj"}) -> the
+    port's EgoVlpVideoTower state dict (the reference's names) of float32
+    torch tensors."""
+    p, vm = params["video_model"], "video_model"
+    out = {f"{vm}.patch_embed.proj.weight": _np(p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1),
+           f"{vm}.patch_embed.proj.bias": _np(p["patch_embed"]["bias"]),
+           f"{vm}.cls_token": _np(p["cls_token"]), f"{vm}.pos_embed": _np(p["pos_embed"]),
+           f"{vm}.temporal_embed": _np(p["temporal_embed"])}
+    _ln(out, f"{vm}.norm", p["norm"])
+    for key in sorted(k for k in p if k.startswith("block_")):
+        blk, name = p[key], f"{vm}.blocks.{key.split('_')[1]}"
+        for norm in ("norm1", "norm2", "norm3"):
+            _ln(out, f"{name}.{norm}", blk[norm])
+        for attn in ("attn", "timeattn"):
+            _dense(out, f"{name}.{attn}.qkv", blk[attn]["qkv"])
+            _dense(out, f"{name}.{attn}.proj", blk[attn]["proj"])
+        _dense(out, f"{name}.mlp.fc1", blk["mlp"]["fc1"])
+        _dense(out, f"{name}.mlp.fc2", blk["mlp"]["fc2"])
+    _dense(out, "vid_proj", params["vid_proj"])
+    return load_reference_state_dict(out)
+
+
+def _shim_parse_config():
+    """The released EgoVLP checkpoint pickles a `parse_config.ConfigParser`
+    object; a stand-in module lets torch.load unpickle it (the reason the
+    reference ships parse_config.py, its header says so, :1-5)."""
+    import sys
+    import types
+
+    if "parse_config" in sys.modules:
+        return
+    mod = types.ModuleType("parse_config")
+
+    class ConfigParser:   # attributes restored straight from the pickle
+        def __init__(self, *a, **k):
+            pass
+
+    mod.ConfigParser = ConfigParser
+    sys.modules["parse_config"] = mod
+
+
+def read_egovlp_checkpoint(path: str) -> dict:
+    """A released EgoVLP checkpoint -> its state dict of tensors (names as
+    saved). The one place the port unpickles it: with the parse_config shim
+    and weights_only=False, since the file pickles a ConfigParser object
+    (unpickling runs code: load only checkpoints you trust)."""
+    _shim_parse_config()
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    sd = state.get("state_dict", state)
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def egovlp_state_dict(sd, cfg, load_temporal_fix: str = "zeros") -> dict:
+    """A reference FrozenInTime state dict (`video_model.*`, `vid_proj.*` or
+    `vid_proj.0.*`, optional `module.` prefixes, tensors or numpy arrays;
+    other keys such as the text model's are left out) -> the port's
+    EgoVlpVideoTower state dict for `cfg` (models/egovlp.EgoVlpConfig).
+
+    The reference's checkpoint-compat shim (egovlp/model.py:137-178): a
+    temporal_embed of another frame count is truncated, zero-filled or
+    interpolated (models/egovlp.inflate_temporal_embed), and a pos_embed of
+    another spatial resolution raises NotImplementedError."""
+    from cone_tpu_torch.models.egovlp import inflate_temporal_embed
+
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+    sd = {(k.replace("vid_proj.0.", "vid_proj.", 1) if k.startswith("vid_proj.0.") else k): v
+          for k, v in sd.items() if k.startswith(("video_model.", "vid_proj."))}
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in sd.items()}
+    n_tokens = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    if sd["video_model.pos_embed"].shape[1] != n_tokens:
+        raise NotImplementedError(
+            "Loading models with different spatial resolution / patch number not supported "
+            f"(checkpoint {sd['video_model.pos_embed'].shape[1]} tokens, model {n_tokens})")
+    sd["video_model.temporal_embed"] = inflate_temporal_embed(
+        sd["video_model.temporal_embed"], cfg.num_frames, load_temporal_fix)
+    keep = {f"video_model.{k}" for k in ("patch_embed.proj.weight", "patch_embed.proj.bias",
+                                         "cls_token", "pos_embed", "temporal_embed",
+                                         "norm.weight", "norm.bias")}
+    keep |= {"vid_proj.weight", "vid_proj.bias"}
+    keep |= {k for k in sd if k.startswith("video_model.blocks.")
+             and int(k.split(".")[2]) < cfg.depth}
+    return load_reference_state_dict({k: v for k, v in sd.items() if k in keep})
+
+
+def load_egovlp_state_dict(path: str, cfg, load_temporal_fix: str = "zeros") -> dict:
+    """A released EgoVLP checkpoint file -> the port's EgoVlpVideoTower
+    state dict for `cfg` (read_egovlp_checkpoint, then egovlp_state_dict);
+    the counterpart of cone_tpu's load_egovlp_params."""
+    return egovlp_state_dict(read_egovlp_checkpoint(path), cfg, load_temporal_fix)
+
+
+def random_clip_vision_state_dict(cfg, seed: int = 0) -> dict:
+    """Seeded random ClipVisionTower weights (HF names, numpy arrays), scaled
+    as random_reference_state_dict scales them."""
+    from cone_tpu_torch.models.clip import ClipVisionTower
+
+    return _random_weights(ClipVisionTower(cfg, device="meta").state_dict(), seed)
+
+
+def random_clip_text_state_dict(cfg, seed: int = 0) -> dict:
+    """Seeded random ClipTextTower weights (HF names, numpy arrays)."""
+    from cone_tpu_torch.models.clip import ClipTextTower
+
+    return _random_weights(ClipTextTower(cfg, device="meta").state_dict(), seed)
+
+
+def random_egovlp_state_dict(cfg, seed: int = 0) -> dict:
+    """Seeded random EgoVlpVideoTower weights (the reference's names, numpy
+    arrays)."""
+    from cone_tpu_torch.models.egovlp import EgoVlpVideoTower
+
+    return _random_weights(EgoVlpVideoTower(cfg, device="meta").state_dict(), seed)

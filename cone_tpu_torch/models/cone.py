@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cone_tpu_torch.config import ModelConfig
+from cone_tpu_torch.models.dropout import RowDropout
 from cone_tpu_torch.models.transformer import LN_EPS, DetrTransformer
 from cone_tpu_torch.ops.pooling import (
     matching_scores_pred,
@@ -43,14 +44,14 @@ def sine_position_embedding(mask: torch.Tensor, num_pos_feats: int,
 
 class LinearLayer(nn.Module):
     """[LayerNorm ->] Dropout -> Linear [-> ReLU] (cone/model.py:443-465);
-    `net` = (Dropout, Linear), hence the reference's `net.1` names."""
+    `net` = (RowDropout, Linear), hence the reference's `net.1` names."""
 
     def __init__(self, in_dim, out_dim, layer_norm=True, dropout=0.1, relu=True,
                  device=None):
         super().__init__()
         self.relu = relu
         self.LayerNorm = nn.LayerNorm(in_dim, eps=LN_EPS, device=device) if layer_norm else None
-        self.net = nn.Sequential(nn.Dropout(dropout), nn.Linear(in_dim, out_dim, device=device))
+        self.net = nn.Sequential(RowDropout(dropout), nn.Linear(in_dim, out_dim, device=device))
 
     def forward(self, x):
         if self.LayerNorm is not None:
@@ -84,7 +85,7 @@ class TrainableTextPos(nn.Module):
         super().__init__()
         self.position_embeddings = nn.Embedding(max_len, hidden, device=device)
         self.LayerNorm = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout)
 
     def forward(self, x):
         table = self.position_embeddings.weight[: x.shape[1]]

@@ -9,6 +9,7 @@ reference's torch state-dict names (`encoder.layers.0.self_attn.in_proj_weight`,
 Attention is an explicit matmul + softmax with key padding as an additive
 -1e30 (transformer.py:91-94 of the JAX package): a boolean mask in
 scaled_dot_product_attention would turn fully masked rows into NaN.
+Dropout draws its masks for the global batch (models/dropout.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cone_tpu_torch.models.dropout import RowDropout
 
 NEG_INF = -1e30
 LN_EPS = 1e-5
@@ -34,7 +37,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
         self.out_proj = nn.Linear(d_model, d_model, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query, key, value,
@@ -76,7 +79,7 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout)
 
     def _ffn(self, x):
         return self.linear2(self.dropout(F.relu(self.linear1(x))))
@@ -106,7 +109,7 @@ class DecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout)
 
     def _ffn(self, x):
         return self.linear2(self.dropout(F.relu(self.linear1(x))))

@@ -8,7 +8,7 @@ top-k windows go through ONE forward.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -58,6 +58,12 @@ class OnlineLocalizer:
     ) -> List[List[float]]:
         """Returns up to max_after_nms moments [st_sec, ed_sec, prop_score,
         match_score, fusion_score], fusion-ranked (cone_localizator.py:200-219)."""
+        return self.localize_ranked(video_feats, token_feats, cls_feat, query, top_k)[0]
+
+    def localize_ranked(self, video_feats, token_feats, cls_feat, query: str = "",
+                        top_k: Optional[int] = None) -> Tuple[List[List[float]], List[int]]:
+        """(moments as `localize` returns them, the coarse stage's window
+        ranklist)."""
         assert len(video_feats) <= self.cfg.data.max_ctx_l, (
             f"video too long: {len(video_feats)} > max_ctx_l="
             f"{self.cfg.data.max_ctx_l}"
@@ -70,6 +76,6 @@ class OnlineLocalizer:
         # the device cache keys by clip_id ("v0" every request): drop it so
         # a new request never reuses the previous video's features
         self.pipe.clear_cache()
-        subs, _ = self.pipe.run(host_postproc=True)
+        subs, ranklists = self.pipe.run(host_postproc=True)
         times = subs["fusion"][0]["predicted_times"]
-        return times[:top_k] if top_k is not None else times
+        return (times[:top_k] if top_k is not None else times), list(ranklists["q0"])

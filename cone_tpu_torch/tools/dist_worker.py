@@ -22,9 +22,9 @@ run when called in-process). Every rank:
 Widths: "narrow" is tests/dist_worker_cfg.py's problem (hidden 64, 4 videos
 x 4 queries, bsz 8); "ego4d" is the Ego4D preset's full width (hidden 256,
 8 heads, 2+2 layers, FFN 1024, 256-d features) at bsz 32 over 8 videos x 8
-queries of 1 500-2 304 clips. Dropouts are 0: the port draws dropout masks
-from each rank's torch generator, cone_tpu from one global key, so only
-without dropout does a data-parallel run equal a single-process one.
+queries of 1 500-2 304 clips. Both train with the preset's dropouts (0.1,
+input 0.5): the masks are drawn for the global batch and each rank keeps
+its rows (models/dropout.py), so the ranks take the single run's steps.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def problem(width: str):
         cfg = ConeConfig(
             model=ModelConfig(hidden_dim=64, nheads=4, dim_feedforward=128, t_feat_dim=dim,
                               v_motion_feat_dim=dim, v_appear_feat_dim=dim, max_q_l=8,
-                              max_v_l=32, dropout=0.0, input_dropout=0.0),
+                              max_v_l=32),
             data=DataConfig(dset_name="synthetic", max_v_l=32, max_q_l=8, clip_length=1.0,
                             topk_window=5, max_ctx_l=256, max_windows=5),
             train=TrainConfig(bsz=8, n_epoch=2, eval_epoch_interval=2, lr=3e-4,
@@ -66,7 +66,6 @@ def problem(width: str):
     assert width == "ego4d", width
     cfg = ego4d_config()
     cfg = cfg.replace(
-        model=dataclasses.replace(cfg.model, dropout=0.0, input_dropout=0.0),
         data=dataclasses.replace(cfg.data, dset_name="synthetic"),
         train=dataclasses.replace(cfg.train, bsz=32, n_epoch=2, eval_epoch_interval=2,
                                   start_epoch_for_adapter=1),

@@ -17,9 +17,11 @@ rows, so every rank holds the same weights, metrics and early-stop state.
 Not ported yet, each raising where it would be asked for: tensor parallel
 training (ROADMAP Queue 1 item 11) and the multiscale loader (item 14,
 CONE-only). `train.rng_impl` chooses a JAX PRNG and has no counterpart
-here: dropout draws from torch's generator, seeded from train.seed plus
-the rank (cone_tpu draws every row's mask from one global key, so a data
-parallel run equals a single-process one only with dropout off).
+here: dropout masks are drawn for the global batch from a generator the
+train step seeds per step from (train.seed, global step), and each rank
+keeps its rows (models/dropout.py), as cone_tpu draws every row's mask
+from one global key; so a data-parallel run equals a single-process one
+with dropout on.
 """
 
 from __future__ import annotations
@@ -243,10 +245,11 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     init_ckpt: weights-only warm start from a reference-named torch file
     (the reference's --resume without --resume_all, cone/config.py:63-66),
     ignored when the run resumes. profile: trace the first epoch with
-    torch.profiler into <workdir>/profile (rank 0). Dropout draws from
-    torch's generator seeded with train.seed plus the rank for the run; the
-    caller's generators are left as they were. A data-parallel run needs a
-    workdir every rank shares."""
+    torch.profiler into <workdir>/profile (rank 0). Dropout draws from the
+    train step's generator (train/step.py); torch's global generator is
+    seeded with train.seed on every rank for the run, and the caller's
+    generators are left as they were. A data-parallel run needs a workdir
+    every rank shares."""
     check_supported(cfg)
     dev = resolve_device(device)
     rank, world = distributed.rank(), distributed.world_size()
@@ -318,7 +321,7 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
 
     history = []
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
-        torch.manual_seed(cfg.train.seed + rank)
+        torch.manual_seed(cfg.train.seed)
         for epoch in range(start_epoch, cfg.train.n_epoch):
             distributed.barrier(f"epoch {epoch}")
             meters = defaultdict(AverageMeter)

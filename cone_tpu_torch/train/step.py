@@ -8,7 +8,11 @@ Data parallel (`reduce` over a group, parallel/distributed.GroupReduce):
 the batch is this rank's row block, the criterion its share of the global
 batch's loss, and one coalesced all-reduce sums the gradients after the
 backward, so the clip sees the global norm and every rank takes the same
-update. The metrics a step returns are the global batch's.
+update. The metrics a step returns are the global batch's. Dropout masks
+are drawn for the global batch from one generator seeded per step from
+(train.seed, global step), and each rank keeps its row block of them
+(models/dropout.py), so N ranks take the single run's steps with dropout
+on too.
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ import numpy as np
 import torch
 
 from cone_tpu_torch.config import ConeConfig
+from cone_tpu_torch.models.dropout import global_rows, step_seed
 from cone_tpu_torch.models.losses import compute_losses, loss_weight_dict, total_loss
 from cone_tpu_torch.ops.pooling import matching_embeds_gt
 from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce
+from cone_tpu_torch.parallel.mesh import row_block
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -77,15 +83,27 @@ def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
     as 0-d tensors on the device; the model is in train mode for the step.
     Parameters without a gradient in a step (the adapter before it is
     switched on, an unused text position table) are left alone by AdamW,
-    as in the reference, and by the gradient all-reduce."""
+    as in the reference, and by the gradient all-reduce.
+
+    The step's two forwards draw their dropout masks, in call order, from
+    one generator on the model's device, seeded from (train.seed, global
+    step); the global step is the lr schedule's step count, which a
+    resumed run restores. The masks cover the global batch (this rank's
+    rows times the ranks) and the rank keeps its row block."""
     loss_fn = make_loss_fn(model, cfg, reduce)
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
     clip = cfg.train.grad_clip if cfg.train.grad_clip > 0 else float("inf")
+    gen = torch.Generator(device=device)
 
     def train_step(batch: dict, adapter_on: bool = False) -> dict:
         model.train()
-        total, losses = loss_fn(batch_to_device(batch, device), adapter_on)
+        batch = batch_to_device(batch, device)
+        rows = len(batch["query_tokens"])
+        lo, _ = row_block(rows * reduce.world, reduce.rank, reduce.world)
+        gen.manual_seed(step_seed(cfg.train.seed, scheduler.last_epoch))
+        with global_rows(gen, rows * reduce.world, lo):
+            total, losses = loss_fn(batch, adapter_on)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         reduce.sum_grads(params)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (coarse segment max, masked attention) on the
 card, each against its plain PyTorch version, the training step on the
 card (against the same step on the CPU, and the reference's golden
-trajectories), and the 2D-TAN model's float32 guarantee and tie order on
-the card. Marked `cuda`: without a card every test here skips. The file
+trajectories), the 2D-TAN model's float32 guarantee and tie order on
+the card, and the feature towers (CLIP, EgoVLP) at full width on the card
+against the CPU, with the golden EgoVLP tower. Marked `cuda`: without a card every test here skips. The file
 imports neither jax nor cone_tpu, so it runs on a machine with PyTorch
 alone, without the JAX-side conftest:
 
@@ -408,3 +409,77 @@ def test_two_gloo_ranks_share_the_card_and_agree(card, tmp_path):
         assert a[k] == b[k], k
     for r in (a, b):
         assert r["dispatches"] > 0 and r["eval_launches"] == r["train_launches"] == r["dispatches"]
+
+
+TOWER_TOL = 1e-4   # card vs CPU, projected features: times max(1, largest |feature|)
+
+
+def _tower_pair(card, cls, cfg, sd):
+    from cone_tpu_torch.convert import load_reference_state_dict
+
+    out = []
+    for dev in (card, "cpu"):
+        m = cls(cfg, device=dev)
+        m.load_state_dict(load_reference_state_dict(sd))
+        out.append(m.eval())
+    return out
+
+
+def _close_to_cpu(got, want):
+    got, want = got.cpu().numpy(), want.numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=TOWER_TOL * max(1.0, float(np.abs(want).max())))
+
+
+def test_clip_towers_on_the_card_equal_the_cpu(card):
+    """ViT-B/32 and the CLIP text tower at full width, seeded HF-layout
+    weights: 2 frames and 2 ragged queries at context 77."""
+    from cone_tpu_torch.convert import random_clip_text_state_dict, random_clip_vision_state_dict
+    from cone_tpu_torch.models.clip import (
+        ClipTextConfig, ClipTextTower, ClipVisionConfig, ClipVisionTower)
+
+    vcfg, tcfg = ClipVisionConfig(), ClipTextConfig()
+    vision, vision_cpu = _tower_pair(card, ClipVisionTower, vcfg,
+                                     random_clip_vision_state_dict(vcfg, 0))
+    text, text_cpu = _tower_pair(card, ClipTextTower, tcfg, random_clip_text_state_dict(tcfg, 1))
+    rng = np.random.default_rng(0)
+    px = torch.from_numpy(rng.normal(size=(2, 3, 224, 224)).astype(np.float32))
+    ids = torch.zeros(2, 77, dtype=torch.long)
+    for i, n in enumerate((9, 77)):
+        ids[i, 0], ids[i, n - 1] = 49406, 49407
+        ids[i, 1 : n - 1] = torch.from_numpy(rng.integers(1, 49406, n - 2))
+    eot = torch.tensor([8, 76])
+    with torch.inference_mode():
+        _close_to_cpu(vision(px.to(card)), vision_cpu(px))
+        for got, want in zip(text(ids.to(card), eot.to(card)), text_cpu(ids, eot)):
+            _close_to_cpu(got, want)
+
+
+def test_egovlp_tower_on_the_card(card):
+    """The golden fixture tests/golden/egovlp_tower.npz on the card at
+    2e-4, and ViT-B/16 at full width (4 frames, seeded weights) against the
+    CPU on one clip."""
+    import os
+
+    from cone_tpu_torch.convert import egovlp_state_dict, random_egovlp_state_dict
+    from cone_tpu_torch.models.egovlp import EgoVlpConfig, EgoVlpVideoTower
+
+    g = dict(np.load(os.path.join(os.path.dirname(__file__), "golden",
+                                  "egovlp_tower.npz")).items())
+    img, patch, dim, depth, heads, nf, proj = g["cfg"].tolist()
+    gcfg = EgoVlpConfig(img_size=img, patch_size=patch, embed_dim=dim, depth=depth,
+                        num_heads=heads, num_frames=nf, projection_dim=proj)
+    tower = EgoVlpVideoTower(gcfg, device=card)
+    tower.load_state_dict(egovlp_state_dict({k[3:]: v for k, v in g.items()
+                                             if k.startswith("w::")}, gcfg))
+    with torch.inference_mode():
+        got = tower.eval()(torch.from_numpy(g["frames"]).to(card)).cpu().numpy()
+    np.testing.assert_allclose(got, g["projected"], atol=2e-4)
+
+    cfg = EgoVlpConfig()
+    ego, ego_cpu = _tower_pair(card, EgoVlpVideoTower, cfg, random_egovlp_state_dict(cfg, 2))
+    clip = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 4, 3, 224, 224)).astype(np.float32))
+    with torch.inference_mode():
+        _close_to_cpu(ego(clip.to(card)), ego_cpu(clip))

@@ -34,7 +34,11 @@ NEW_MODULES = [
     "cone_tpu_torch.models.tan", "cone_tpu_torch.eval.tan_pipeline",
     "cone_tpu_torch.train.tan_step", "cone_tpu_torch.tools.golden_tan_train",
     "cone_tpu_torch.parallel.distributed", "cone_tpu_torch.parallel.mesh",
-    "cone_tpu_torch.tools.dist_worker", "cone_tpu_torch.tools.bench_dp_step"]
+    "cone_tpu_torch.tools.dist_worker", "cone_tpu_torch.tools.bench_dp_step",
+    "cone_tpu_torch.models.dropout", "cone_tpu_torch.models.clip",
+    "cone_tpu_torch.models.egovlp", "cone_tpu_torch.extract.video",
+    "cone_tpu_torch.extract.egovlp_video", "cone_tpu_torch.extract.text",
+    "cone_tpu_torch.serve.predictor"]
 
 
 def _modules():
@@ -53,6 +57,27 @@ def test_import_loads_no_jax_and_no_cone_tpu():
         "from cone_tpu_torch.kernels import build\n"
         "assert build.load_library.cache_info().currsize == 0  # nothing built or loaded\n"
         "print(len(mods))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15 + len(NEW_MODULES)
+
+
+def test_every_module_imports_without_transformers():
+    """Every module of the port imports where transformers is absent (the
+    towers import it only where a released model or tokenizer is loaded by
+    name), as on a GPU machine without it."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['transformers'] = None\n"
+        f"mods = {_modules()!r}\n"
+        "for m in ['cone_tpu_torch'] + mods:\n"
+        "    importlib.import_module(m)\n"
+        "try:\n"
+        "    import transformers\n"
+        "except ImportError:\n"
+        "    print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -89,7 +114,9 @@ def test_default_device_is_the_card_and_raises_without_one():
                                    "bench_attn", "train", "cli_train", "tan_model",
                                    "tan_build_family", "tan_pipeline", "tan_cli_train",
                                    "golden_tan_train", "cli_train_mesh", "dist_initialize",
-                                   "dist_worker"])
+                                   "dist_worker", "clip_vision_tower", "clip_text_tower",
+                                   "egovlp_tower", "predictor", "extract_clip_text",
+                                   "extract_egovlp_video", "cli_demo", "cli_extract_video"])
 def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -107,6 +134,11 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     from cone_tpu_torch.models.tan import ConeTanModel
     from cone_tpu_torch.tools import dist_worker, golden_tan_train
     from cone_tpu_torch.parallel import distributed
+    from cone_tpu_torch.extract.egovlp_video import extract_egovlp_video
+    from cone_tpu_torch.extract.text import extract_clip_text
+    from cone_tpu_torch.models.clip import ClipTextTower, ClipVisionTower
+    from cone_tpu_torch.models.egovlp import EgoVlpVideoTower
+    from cone_tpu_torch.serve.predictor import MomentPredictor
 
     tan_cfg = tan_ego4d_config()
     tan_cfg = tan_cfg.replace(tan=TanConfig(hidden_size=8, v_feat_dim=32, t_feat_dim=32,
@@ -148,6 +180,20 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
                                             str(tmp_path / "mesh")]),
         "dist_initialize": lambda: distributed.initialize(num_processes=1, process_id=0),
         "dist_worker": lambda: dist_worker.main(["--out", str(tmp_path / "w")]),
+        "clip_vision_tower": lambda: ClipVisionTower(),
+        "clip_text_tower": lambda: ClipTextTower(),
+        "egovlp_tower": lambda: EgoVlpVideoTower(),
+        "predictor": lambda: MomentPredictor(model, cfg, cache_dir=str(tmp_path / "c")),
+        "extract_clip_text": lambda: extract_clip_text(
+            str(tmp_path / "q.jsonl"), str(tmp_path / "t"), _model=object(),
+            _tokenizer=object()),
+        "extract_egovlp_video": lambda: extract_egovlp_video(
+            {}, str(tmp_path / "v.cfs"), str(tmp_path / "e.pth")),
+        "cli_demo": lambda: cli.main(["demo", "--workdir", str(tmp_path), "--video", "v.mp4",
+                                      "--query", "q", "--cache_dir", str(tmp_path / "c")]),
+        "cli_extract_video": lambda: cli.main(["extract-video", "--videos", "v.mp4", "--out",
+                                               str(tmp_path / "v.cfs"), "--backend", "egovlp",
+                                               "--checkpoint", "e.pth"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -5,12 +5,14 @@ library, `train --distributed/--mesh`) on the CPU over gloo.
   * a real two-rank group: two processes of cone_tpu_torch/tools/dist_worker.py
     at tests/dist_worker_cfg.py's narrow width (hidden 64, 4 videos x 4
     queries, bsz 8), against the single-process port run of the same
-    problem (dist_worker.run in this process, no group). Dropouts are 0:
-    the port draws dropout masks from each rank's torch generator, cone_tpu
-    from one global key, so only without dropout is a data-parallel run
-    the single run. The single-process port is held to cone_tpu by
+    problem (dist_worker.run in this process, no group), with the preset's
+    dropouts (0.1, input 0.5): the masks are drawn for the global batch and
+    each rank keeps its rows (models/dropout.py), as cone_tpu draws them
+    from one global key. The single-process port is held to cone_tpu by
     tests/test_torch_train.py; here the ranks are held to it at 1e-5,
     tighter than tests/test_multiprocess.py's 2e-4;
+  * the dropout masks: a row split draws the whole batch's mask rows, and
+    two ranks as threads take the single process's train steps;
   * the criterion split into two shards in this process, through the
     loss's reduce hook over threads: equal to cone_tpu's criterion on the
     whole batch, value and gradient, with rows of unequal span counts;
@@ -18,6 +20,7 @@ library, `train --distributed/--mesh`) on the CPU over gloo.
   * the units: strided video shards, row blocks, a group of one rank.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -36,6 +39,7 @@ from cone_tpu.models import losses as jlosses
 from cone_tpu_torch import cli
 from cone_tpu_torch.config import LossConfig
 from cone_tpu_torch.models import losses
+from cone_tpu_torch.models.dropout import RowDropout, global_rows, step_seed
 from cone_tpu_torch.parallel import distributed
 from cone_tpu_torch.parallel.distributed import GroupReduce
 from cone_tpu_torch.parallel.mesh import row_block, tp_size
@@ -325,6 +329,79 @@ def test_sharded_criterion_equals_cone_tpu(case):
         g = np.concatenate([shards[0][1][i], shards[1][1][i]])
         np.testing.assert_allclose(g, w, rtol=0, atol=RTOL * max(1.0, np.abs(w).max()),
                                    err_msg=f"gradient {i}")
+
+
+# ------------------------------------------------------------- dropout
+
+def test_row_split_draws_the_whole_batch_masks():
+    """Two row blocks of 4 draw, call by call, the rows of the masks the
+    whole batch of 8 draws from the same generator: (B, H, Lq, Lk) and
+    (B, L, D) shapes in turn, as a step's forwards call them."""
+    drop = RowDropout(0.3).train()
+    x = torch.randn(8, 4, 6, 6)
+    y = torch.randn(8, 5, 16)
+
+    def calls(lo, b):
+        gen = torch.Generator().manual_seed(step_seed(2018, 3))
+        with global_rows(gen, 8, lo):
+            return [drop(x[lo : lo + b]), drop(y[lo : lo + b]), drop(x[lo : lo + b])]
+
+    whole = calls(0, 8)
+    halves = [calls(0, 4), calls(4, 4)]
+    for i, w in enumerate(whole):
+        assert torch.equal(torch.cat([halves[0][i], halves[1][i]]), w), i
+    kept = (whole[1] != 0).float().mean().item()
+    assert 0.6 < kept < 0.8
+    assert torch.allclose(whole[1][whole[1] != 0], (y / 0.7)[whole[1] != 0])
+    assert not torch.equal(whole[0], whole[2])      # the stream moves on
+    assert step_seed(2018, 3) != step_seed(2018, 4) and step_seed(1, 3) != step_seed(2018, 3)
+    assert torch.equal(drop.eval()(x), x)
+    with pytest.raises(ValueError, match="outside a global batch"):
+        with global_rows(None, 8, 6):
+            drop.train()(x[:4])
+
+
+def test_dropout_two_thread_ranks_take_the_single_steps():
+    """An epoch's two train steps at dropout 0.1 (input 0.5), adapter on: two ranks
+    as threads of this process, each on its row block, against one process
+    on the whole batch: losses, grad norms and weights within 1e-5."""
+    from cone_tpu_torch.data import TrainLoader
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    cfg, ds = dist_worker.problem("narrow")
+    assert cfg.model.dropout == 0.1 and cfg.model.input_dropout == 0.5
+    loader = TrainLoader(ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
+
+    def run(cfg, world):
+        # the models are built here: their initialisation seeds torch's
+        # global generator, which threads would share
+        models = [build_family(cfg, seed=cfg.train.seed, device="cpu") for _ in range(world)]
+
+        def rank(r, reduce):
+            model = models[r]
+            opt, sched = make_optimizer(model, cfg.train, loader.steps_per_epoch())
+            step = make_train_step(model, opt, sched, cfg, reduce)
+            lo, hi = row_block(cfg.train.bsz, reduce.rank, reduce.world)
+            metrics = [to_floats(step(b, True)) for b in loader.epoch(0, lo, hi)]
+            return metrics, [p.detach().clone() for p in model.parameters()]
+        return _Threads(world).run(rank)
+
+    (single, w1), = run(cfg, 1)
+    ranks = run(cfg, 2)
+    assert len(single) == 2   # 16 examples, bsz 8
+    for metrics, weights in ranks:
+        for got, want in zip(metrics, single):
+            for k in ("loss_overall", "grad_norm", "loss_adapter"):
+                assert abs(got[k] - want[k]) <= RTOL * max(1.0, abs(want[k])), (k, got[k], want[k])
+        for g, w in zip(weights, w1):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=RTOL * max(1.0, float(w.abs().max())))
+    # dropout was on: the same steps without it give other losses
+    (plain, _), = run(cfg.replace(model=dataclasses.replace(
+        cfg.model, dropout=0.0, input_dropout=0.0)), 1)
+    assert abs(plain[0]["loss_overall"] - single[0]["loss_overall"]) > 1e-4
 
 
 # ------------------------------------------------------------------ CLI
