@@ -7,7 +7,8 @@
 Phases, each of which raises (exit code != 0) on failure:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build every CUDA kernel under cone_tpu_torch/csrc/ (nvcc, sm_90a);
+  2. build every CUDA kernel under cone_tpu_torch/csrc/ (nvcc, sm_90a) and
+     the native .cfs reader (g++), which every later phase's stores use;
   3. each kernel against its plain PyTorch version at its path's shape, at
      MAD scale and at the seams of its tiling: error, window-ranklist
      agreement (near-tie flips counted), kernel / plain / library times
@@ -66,7 +67,17 @@ Phases, each of which raises (exit code != 0) on failure:
      ranklists against the CPU and the kernel off up to near-tie flips; (d)
      `serve --text_backend clip`'s service over HTTP: raw-text /search ==
      the feature-carrying /search;
- 11. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+ 11. the data layer at the Ego4D preset's widths (data_phase): (a) the
+     native .cfs reader built with g++, npy and pt directories through
+     `convert-store` (equal bytes), native == Python reader in float32 and
+     float16, read times on the host; (b) `train` with the ECCV'22
+     multiscale recipe through the CLI on those stores, bsz 32, 2 epochs,
+     one eval epoch through the coarse kernel, ms per step and the loader's
+     share beside the standard step; (c) 3 multiscale steps card vs CPU at
+     dropout 0 (losses, grad norm, each leaf's weight change); (d) `infer`
+     (the native reader) and evaluate over the eval split opened with the
+     Python reader, equal answers;
+ 12. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -75,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1730,6 +1742,365 @@ def towers_phase(card, peaks):
     return meas, launches, coarse_shape
 
 
+DATA_VIDEOS, DATA_QPV, DATA_EVAL_VIDEOS = 32, 16, 8   # 512 train queries, 128 eval
+DATA_CTX = (880, 898)   # an Ego4D-NLQ clip: 480 s at 0.535 s a feature, 897 clips
+DATA_T_DIM = 512        # the recipe's CLIP text tokens (model.t_feat_dim=512)
+DATA_RTOL = 1e-4        # card vs CPU losses and grad norm, relative to max(1, |v|)
+DATA_DW_RTOL = 0.1      # card vs CPU weight change of the worst leaf, relative in norm
+DATA_GRAD_FLOOR = 1e-6  # a leaf's gradient norm / the model's below which it is rounding
+
+
+def _host_cpu():
+    """This host's CPU (model where /proc/cpuinfo names one, architecture)
+    and core count: host times stand beside it."""
+    import platform
+
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), None)
+    except OSError:
+        pass
+    return f"{model or 'CPU model not reported'} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def data_phase(card, standard_step_ms, reader_build_s):
+    """The data layer on the card's machine, at the Ego4D preset's widths
+    (256-d video features, the leaderboard recipe's 512-d CLIP text tokens,
+    256-d query CLS), on a planted-signal corpus of 32 clips x 16 queries at
+    880-897 features a clip (an Ego4D-NLQ clip is 480 s at 0.535 s a
+    feature). Card-only: no device knob.
+    (a) the native .cfs reader (built with g++ in phase 2); the corpus written as .npy
+    and as .pt directories and put through `convert-store`: the two .cfs
+    files of each store equal byte for byte and equal write_packed_store
+    of the same dict; NativePackedStore.get and read_batch equal
+    PackedArrayStore on every key in float32 and float16; get of every
+    video through each reader, timed (host numbers).
+    (b) `train` through the CLI with the recipe's --set lines
+    (model.t_feat_dim=512, train.multiscale=true,
+    train.start_epoch_for_adapter=-1), bsz 32, 2 epochs of 16 steps, one
+    eval epoch through the coarse kernel, the stores read by the native
+    reader: ms per step and the loader's share beside the standard step.
+    (c) 3 multiscale steps at dropout 0 at the same width, bsz 8, on the
+    card and on the CPU in this process from the same weights and batches:
+    losses and grad norm, and each leaf's weight change over the 3 steps.
+    (d) `infer` on (b)'s workdir (the native reader), and evaluate over
+    the eval split opened with the Python reader (`reader="python"`):
+    equal ranklists and moments. Returns (measurements, coarse launches by
+    run)."""
+    import copy as copy_mod
+
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch import cli
+    from cone_tpu_torch.config import ego4d_config
+    from cone_tpu_torch.data.multiscale import MultiscaleTrainLoader
+    from cone_tpu_torch.data.native_store import NativePackedStore, load_reader
+    from cone_tpu_torch.data.store import PackedArrayStore, write_packed_store
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cone_tpu_torch.kernels import build
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.train.checkpoint import load_config, load_model
+    from cone_tpu_torch.train.loop import build_family, evaluate
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+    from cone_tpu_torch.utils.io import load_jsonl, save_jsonl
+
+    t_phase = time.time()
+    host = _host_cpu()
+    meas, launches = {"host": host}, {}
+
+    # (a) the reader and the stores
+    load_reader()
+    meas["reader_build_s"] = reader_build_s
+    cfg = ego4d_config()
+    dim = cfg.model.v_appear_feat_dim
+    ds = make_synthetic_dataset(cfg.data, n_videos=DATA_VIDEOS, queries_per_video=DATA_QPV,
+                                ctx_l_range=DATA_CTX, dim=dim, signal=3.0, seed=3)
+    rng = np.random.default_rng(3)
+    stores = {
+        "video": {v: ds.appear.get(v) for v in ds.video_ids},
+        "tokens": {e.query_id: rng.normal(size=(len(ds.text.get_tokens(e.query_id)), DATA_T_DIM))
+                   .astype(np.float32) for e in ds.examples},
+        "cls": {e.query_id: ds.text.get_cls(e.query_id)[None] for e in ds.examples},
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        feat = os.path.join(tmp, "features")
+        os.makedirs(os.path.join(feat, "text"))
+        cfs = {"video": os.path.join(feat, "video.cfs"),
+               "tokens": os.path.join(feat, "text", "tokens.cfs"),
+               "cls": os.path.join(feat, "text", "cls.cfs")}
+        t0 = time.time()
+        n_bytes = 0
+        for name, items in stores.items():
+            want_path = os.path.join(tmp, f"{name}.want.cfs")
+            write_packed_store(want_path, dict(sorted(items.items())))
+            want = open(want_path, "rb").read()
+            n_bytes += len(want)
+            outs = {}
+            for fmt in ("npy_dir", "pt_dir"):
+                src = os.path.join(tmp, f"{name}_{fmt}")
+                os.makedirs(src)
+                for k, a in items.items():
+                    if fmt == "npy_dir":   # a CLS vector as the 1-D .npy it ships as
+                        np.save(os.path.join(src, f"{k}.npy"), a[0] if name == "cls" else a)
+                    else:
+                        torch.save(torch.from_numpy(a), os.path.join(src, f"{k}.pt"))
+                out = cfs[name] if fmt == "npy_dir" else os.path.join(tmp, f"{name}.pt.cfs")
+                cli.main(["convert-store", "--input", src, "--output", out, "--format", fmt])
+                outs[fmt] = open(out, "rb").read()
+            check(outs["npy_dir"] == outs["pt_dir"] == want,
+                  f"convert-store {name}: the npy, pt and written .cfs files differ")
+        meas["convert_s"] = time.time() - t0
+        f16_path = os.path.join(tmp, "video.f16.cfs")
+        write_packed_store(f16_path, {k: v.astype(np.float16) for k, v in stores["video"].items()})
+        keys = sorted(stores["video"])
+        for path in (cfs["video"], f16_path, cfs["tokens"], cfs["cls"]):
+            nat, py = NativePackedStore(path), PackedArrayStore(path)
+            check(list(nat.keys()) == list(py.keys()), f"{path}: keys differ")
+            for k in py.keys():
+                a, b = nat.get(k), py.get(k)
+                check(a.dtype == b.dtype and np.array_equal(a, b), f"{path} {k}: get differs")
+            ks = list(py.keys())[:64] + ["missing"]
+            (a, la), (b, lb) = nat.read_batch(ks, cfg.data.max_ctx_l), py.read_batch(
+                ks, cfg.data.max_ctx_l)
+            check(np.array_equal(a, b) and np.array_equal(la, lb) and la[-1] == 0,
+                  f"{path}: read_batch differs")
+        def median_ms(fn, n=5):
+            runs = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(runs))
+
+        times = {}
+        for label, path in (("f32", cfs["video"]), ("f16", f16_path)):
+            for reader in (NativePackedStore(path), PackedArrayStore(path)):
+                # every clip as GroundingDataset reads one: get, then a float32 copy
+                times[f"{type(reader).__name__}_{label}_ms"] = median_ms(
+                    lambda: [reader.get(k).astype(np.float32) for k in keys])
+            nat = NativePackedStore(path)
+            times[f"read_batch_{label}_ms"] = median_ms(
+                lambda: nat.read_batch(keys, cfg.data.max_ctx_l))
+        meas.update(times)
+        mb = sum(v.nbytes for v in stores["video"].values()) / 1e6
+        print(f"data (a): native reader {build.host_library_path('feature_store').name} (built "
+              f"in {reader_build_s:.2f} s in phase 2); {len(stores['tokens'])} queries over "
+              f"{len(keys)} clips "
+              f"({mb:.1f} MB of float32 video features, {n_bytes / 1e6:.1f} MB in 3 stores); "
+              f"convert-store of npy and pt directories: equal bytes, == write_packed_store, "
+              f"{meas['convert_s']:.2f} s; native == Python reader on every key in float32 "
+              f"and float16 (get, read_batch with a missing key)", flush=True)
+        print(f"data (a): get of all {len(keys)} clips + astype(float32), median of 5 (host "
+              f"clock, warm page cache): native "
+              f"{times['NativePackedStore_f32_ms']:.3f} ms / Python "
+              f"{times['PackedArrayStore_f32_ms']:.3f} ms in float32, "
+              f"{times['NativePackedStore_f16_ms']:.3f} / {times['PackedArrayStore_f16_ms']:.3f}"
+              f" ms in float16; native read_batch of all at {cfg.data.max_ctx_l} rows "
+              f"{times['read_batch_f32_ms']:.3f} ms (f32) / {times['read_batch_f16_ms']:.3f} ms "
+              f"(f16) [host {host}] [{card}]", flush=True)
+
+        # (b) multiscale training through the CLI, the stores on the native reader
+        rows = [dataclasses.asdict(e) for e in ds.examples]
+        eval_vids = set(ds.video_ids[:DATA_EVAL_VIDEOS])
+        save_jsonl(rows, os.path.join(tmp, "train.jsonl"))
+        save_jsonl([r for r in rows if r["clip_id"] in eval_vids], os.path.join(tmp, "val.jsonl"))
+        wd = os.path.join(tmp, "run")
+        sets = ["model.t_feat_dim=512", "train.multiscale=true",
+                "train.start_epoch_for_adapter=-1", "train.bsz=32", "train.n_epoch=2",
+                "train.eval_epoch_interval=2", "eval.use_pallas_coarse=true",
+                "data.dset_name=synthetic", f"data.appearance_feat_dir={cfs['video']}",
+                f"data.t_feat_dir={os.path.join(feat, 'text')}"]
+        argv = ["train", "--preset", "ego4d", "--workdir", wd, "--device", "cuda",
+                "--train_path", os.path.join(tmp, "train.jsonl"),
+                "--eval_path", os.path.join(tmp, "val.jsonl")]
+        for kv in sets:
+            argv += ["--set", kv]
+        co.coarse_segment_max.launches = 0
+        t0 = time.time()
+        model, history = cli.main(argv)
+        torch.cuda.synchronize()
+        meas["train_s"] = time.time() - t0
+        launches["multiscale_train_eval"] = co.coarse_segment_max.launches
+        check(launches["multiscale_train_eval"] > 0,
+              "the multiscale run's eval epoch launched no coarse_segment_max kernel")
+        steps = len(rows) // 32
+        check(len(history) == 2 and all(len(h["step_times"]) == steps for h in history),
+              f"history: {[(h['epoch'], len(h['step_times'])) for h in history]}")
+        for h in history:
+            bad = {k: v for k, v in h.items() if k.startswith(("loss", "eval_loss", "grad_norm"))
+                   and not np.isfinite(v)}
+            check(not bad, f"multiscale epoch {h['epoch']}: non-finite {bad}")
+        check("loss_adapter" in history[0], "the adapter was off in epoch 1 (start_epoch -1)")
+        dispatches = len(eval_vids) * -(-DATA_QPV // cfg.eval.query_chunk)
+        check(launches["multiscale_train_eval"] == dispatches,
+              f"{launches['multiscale_train_eval']} coarse launches, want {dispatches}")
+        warm = history[1]["step_times"]
+        step_ms = float(np.median(warm)) * 1e3
+        wait_ms = history[1]["dataloading_time"] * 1e3
+        train_ds = cli._open_dataset(load_config(wd), os.path.join(tmp, "train.jsonl"))
+        loader = MultiscaleTrainLoader(train_ds, bsz=32, seed=7)
+        batches = loader.epoch(0)
+        next(batches)   # the video cache fills on the first pass
+        t0 = time.perf_counter()
+        for _ in range(4):
+            next(batches)
+        build_ms = (time.perf_counter() - t0) / 4 * 1e3
+        meas.update(multiscale_warm_step_ms_median=step_ms, loader_wait_ms=wait_ms,
+                    loader_share=wait_ms / (wait_ms + step_ms), loader_build_ms=build_ms,
+                    standard_warm_step_ms_median=standard_step_ms,
+                    eval_seconds=history[1]["eval_seconds"])
+        print(f"data (b): train --preset ego4d + the recipe's sets (multiscale, t_feat_dim 512, "
+              f"adapter from epoch 0), bsz 32 ({4 * 32} motion rows of {2 * cfg.data.max_v_l}), "
+              f"{len(rows)} queries: 2 epochs of {steps} steps in {meas['train_s']:.2f} s, losses "
+              f"finite, loss {history[0]['loss_overall']:.4f} -> {history[1]['loss_overall']:.4f}"
+              f"; eval epoch {history[1]['eval_seconds']:.3f} s with "
+              f"{launches['multiscale_train_eval']} coarse launches for {dispatches} dispatches",
+              flush=True)
+        print(f"data (b): multiscale warm step median {step_ms:.2f} ms (epoch 2, host clock) vs "
+              f"the standard step's {standard_step_ms:.2f} ms (training phase); the step waited "
+              f"{wait_ms:.2f} ms a batch for the loader (share {meas['loader_share']:.4f}); "
+              f"one multiscale batch builds in {build_ms:.2f} ms on the host alone "
+              f"[host {host}] [{card}]", flush=True)
+
+        # (c) card vs CPU: 3 multiscale steps at dropout 0, the same batches
+        c_cfg = ego4d_config()
+        c_cfg = c_cfg.replace(
+            model=dataclasses.replace(c_cfg.model, t_feat_dim=DATA_T_DIM, dropout=0.0,
+                                      input_dropout=0.0),
+            train=dataclasses.replace(c_cfg.train, multiscale=True, start_epoch_for_adapter=-1))
+        c_batches = list(itertools.islice(MultiscaleTrainLoader(train_ds, bsz=8, seed=1)
+                                          .epoch(0), 3))
+        base = build_family(c_cfg, seed=0, device="cpu")
+        w0 = {n: p.detach().double() for n, p in base.named_parameters()}
+        got, grads = {}, {}
+        t0 = time.time()
+        for dev in ("cpu", "cuda"):
+            m = copy_mod.deepcopy(base).to(dev)
+            opt, sched = make_optimizer(m, c_cfg.train, steps_per_epoch=3)
+            step = make_train_step(m, opt, sched, c_cfg)
+            metrics, grads[dev] = [], []
+            for b in c_batches:
+                metrics.append(to_floats(step(b, True)))
+                grads[dev].append({n: p.grad.detach().cpu().clone()
+                                   for n, p in m.named_parameters() if p.grad is not None})
+            # each leaf's change over the 3 steps, exact in float64
+            got[dev] = (metrics, {n: p.detach().cpu().double() - w0[n]
+                                  for n, p in m.named_parameters()})
+        meas["card_vs_cpu_s"] = time.time() - t0
+        metric_err, worst = 0.0, ""
+        for m_cpu, m_gpu in zip(got["cpu"][0], got["cuda"][0]):
+            for k, v in m_cpu.items():
+                e = abs(m_gpu[k] - v) / max(1.0, abs(v))
+                if e > metric_err:
+                    metric_err, worst = e, k
+        dw_cpu, dw_gpu = got["cpu"][1], got["cuda"][1]
+        # the weights' change, leaf by leaf: ||dw_card - dw_cpu|| / ||dw_cpu||.
+        # A card that skipped one of the 3 updates reads about 1/3, one that
+        # skipped them all 1. Not held to it: a leaf whose gradient is
+        # float32 rounding in every step (below DATA_GRAD_FLOOR of the
+        # model's gradient norm, such as decoder layer 0's self-attention
+        # over the all-zero first target), where Adam's division by
+        # sqrt(v) + eps turns noise into steps of up to lr on either side;
+        # a leaf the CPU left unchanged must stay unchanged on the card
+        g_all = [torch.cat([g.flatten() for g in gs.values()]).norm() for gs in grads["cpu"]]
+        g_share = {n: max(float(gs[n].norm() / ga) if n in gs else 0.0
+                          for gs, ga in zip(grads["cpu"], g_all)) for n in dw_cpu}
+        noise = sorted(n for n, sh in g_share.items() if sh < DATA_GRAD_FLOOR)
+        leaf_err = {n: float((dw_gpu[n] - d).norm() / d.norm())
+                    for n, d in dw_cpu.items() if d.norm() > 0}
+        noise_err = {n: leaf_err.get(n) for n in noise}
+        leaf_err = {n: e for n, e in leaf_err.items() if n not in noise}
+        still = [n for n, d in dw_cpu.items() if not d.norm() > 0]
+        moved = [n for n in still if dw_gpu[n].abs().max() > 0]
+        dw_leaf = max(leaf_err, key=leaf_err.get)
+        dw_err = leaf_err[dw_leaf]
+        # the entry that differs most, absolutely, with its gradient per step
+        name = max(dw_cpu, key=lambda n: float((dw_gpu[n] - dw_cpu[n]).abs().max()))
+        diff = (dw_gpu[name] - dw_cpu[name]).flatten().abs()
+        i = int(diff.argmax())
+        entry = dict(
+            leaf=name, index=i, leaf_numel=diff.numel(), abs_err=float(diff[i]),
+            dw_cpu=float(dw_cpu[name].flatten()[i]), dw_card=float(dw_gpu[name].flatten()[i]),
+            grad_cpu=[float(g[name].flatten()[i]) for g in grads["cpu"]],
+            grad_card=[float(g[name].flatten()[i]) for g in grads["cuda"]],
+            leaf_rel_err=leaf_err.get(name))
+        lr = c_cfg.train.lr
+        meas.update(card_vs_cpu_metric_rel_err=metric_err, card_vs_cpu_dw_rel_err=dw_err,
+                    card_vs_cpu_dw_worst_leaf=dw_leaf,
+                    card_vs_cpu_dw_global_rel_err=float(
+                        torch.cat([(dw_gpu[n] - d).flatten() for n, d in dw_cpu.items()]).norm()
+                        / torch.cat([d.flatten() for d in dw_cpu.values()]).norm()),
+                    card_vs_cpu_weight_abs_err=entry["abs_err"], card_vs_cpu_worst_entry=entry,
+                    card_vs_cpu_unchanged_leaves=still, card_vs_cpu_rounding_leaves=noise_err)
+        top = sorted(leaf_err.items(), key=lambda kv: -kv[1])[:4]
+        print(f"data (c): 3 multiscale steps at dropout 0, Ego4D width, bsz 8 (32 motion rows), "
+              f"card vs CPU on the same batches: losses and grad norm within {metric_err:.2e} "
+              f"relative (worst {worst}; limit {DATA_RTOL}); weight change per leaf within "
+              f"{dw_err:.2e} relative ({dw_leaf}; limit {DATA_DW_RTOL}; all leaves together "
+              f"{meas['card_vs_cpu_dw_global_rel_err']:.2e}); next "
+              f"{', '.join(f'{n} {e:.2e}' for n, e in top[1:])}; gradient at the rounding "
+              f"level (< {DATA_GRAD_FLOOR} of the model's), not held: "
+              f"{ {n: (f'{g_share[n]:.1e}', e) for n, e in noise_err.items()} }, the smallest "
+              f"held {min(g_share[n] for n in leaf_err):.1e}; "
+              f"{len(still)} leaves unchanged on the CPU {still}, of which moved on the card "
+              f"{moved}; {meas['card_vs_cpu_s']:.1f} s", flush=True)
+        print(f"data (c): the largest weight difference, {entry['abs_err']:.3e} (lr {lr:.0e}, "
+              f"AdamW's eps 1e-8): "
+              f"{entry['leaf']}[{entry['index']}] of {entry['leaf_numel']} entries (leaf "
+              f"{entry['leaf_rel_err']}), change {entry['dw_cpu']:.6e} on the CPU, "
+              f"{entry['dw_card']:.6e} on the card; gradients by step, CPU "
+              f"{[f'{g:.6e}' for g in entry['grad_cpu']]}, card "
+              f"{[f'{g:.6e}' for g in entry['grad_card']]}", flush=True)
+        check(metric_err <= DATA_RTOL, f"multiscale card vs CPU: {worst} off by {metric_err}")
+        check(dw_err <= DATA_DW_RTOL,
+              f"multiscale card vs CPU: {dw_leaf}'s weight change off by {dw_err} relative")
+        check(not moved, f"multiscale card vs CPU: the card moved leaves the CPU left: {moved}")
+
+        # (d) the eval split through each reader: `infer` as a user runs it
+        # (the native reader), then the same checkpoint's evaluate over the
+        # dataset opened with the Python reader; equal ranklists and moments
+        out = os.path.join(tmp, "infer")
+        co.coarse_segment_max.launches = 0
+        cli.main(["infer", "--workdir", wd, "--ckpt", "latest", "--results_dir", out,
+                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches["data_infer_native"] = co.coarse_segment_max.launches
+        ranks = {"native": load_jsonl(os.path.join(out, "inference_latest_windows.jsonl"))}
+        preds = {"native": load_jsonl(os.path.join(out, "inference_latest_preds.jsonl"))}
+        i_cfg = load_config(wd)
+        i_model, _ = load_model(wd, "latest", device="cuda", cfg=i_cfg)
+        py_ds = cli._open_dataset(i_cfg, os.path.join(tmp, "val.jsonl"), reader="python")
+        check(isinstance(py_ds.appear, PackedArrayStore), "the Python reader was not taken")
+        co.coarse_segment_max.launches = 0
+        res = evaluate(i_model, py_ds, i_cfg, host_postproc=True, device="cuda")
+        torch.cuda.synchronize()
+        launches["data_infer_python"] = co.coarse_segment_max.launches
+        # through the same files as infer's, so both sides read back alike
+        save_jsonl([{"query_id": q, "ranklist": [int(w) for w in r]}
+                    for q, r in res["ranklists"].items()], os.path.join(tmp, "py_windows.jsonl"))
+        save_jsonl(res["submissions"]["fusion"], os.path.join(tmp, "py_preds.jsonl"))
+        ranks["python"] = load_jsonl(os.path.join(tmp, "py_windows.jsonl"))
+        preds["python"] = load_jsonl(os.path.join(tmp, "py_preds.jsonl"))
+        for reader in ("native", "python"):
+            check(launches[f"data_infer_{reader}"] == dispatches,
+                  f"{reader} reader: {launches[f'data_infer_{reader}']} coarse launches")
+        check(ranks["native"] == ranks["python"], "ranklists differ between the readers")
+        check(preds["native"] == preds["python"], "moments differ between the readers")
+        print(f"data (d): `infer` on the multiscale workdir (native reader) and evaluate over "
+              f"the eval split opened with the Python reader: {len(ranks['native'])} "
+              f"ranklists and moments equal, {dispatches} coarse launches each; phase "
+              f"{time.time() - t_phase:.1f} s", flush=True)
+        del i_model
+    del model
+    torch.cuda.empty_cache()
+    meas["phase_s"] = time.time() - t_phase
+    return meas, launches
+
+
 def _self_device_us(evt):
     t = getattr(evt, "self_device_time_total", None)
     return evt.self_cuda_time_total if t is None else t
@@ -1863,6 +2234,11 @@ def main():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    t0 = time.time()
+    host_lib = build.build_host("feature_store")   # the .cfs reader: host code, g++
+    reader_build_s = time.time() - t0
+    print(f"built the native .cfs reader {os.path.relpath(host_lib, REPO)} with g++ "
+          f"{' '.join(build.CXX_FLAGS)} in {reader_build_s:.2f} s", flush=True)
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2003,6 +2379,9 @@ def main():
     demo_case = coarse_case("mad-demo", b, q, l_pad, d, stride, ctx, peaks, 500, gen)
     cases.append(demo_case)
 
+    # 11. the data layer: stores, convert-store, multiscale training, readers in infer
+    data, data_launches = data_phase(smi, training["warm_step_ms_median"], reader_build_s)
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -2012,11 +2391,11 @@ def main():
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
         replaces="cone_tpu/ops/pallas_coarse.py:66",
         launches=(launches + train_launches + tan_launches + tan_train_launches
-                  + sum(par_launches.values()) + demo_launches),
+                  + sum(par_launches.values()) + demo_launches + sum(data_launches.values())),
         launches_by_path={"inference": launches, "train_eval": train_launches,
                           "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
                           **{f"parallel_{k}": v for k, v in par_launches.items()},
-                          "demo": demo_launches},
+                          "demo": demo_launches, **data_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -2039,7 +2418,7 @@ def main():
         bfloat16=dict(max_abs_err=attn_err["bfloat16"], **{k: a16[k] for k in keys})))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
-                      "parallel": parallel, "towers": towers, "card": smi}))
+                      "parallel": parallel, "towers": towers, "data": data, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """Command-line entry points: train / infer / eval / ensemble / serve /
-demo / extract-text / extract-video.
+demo / extract-text / extract-video / reformat / convert-store.
 
     python -m cone_tpu_torch <command> ... [--device cuda]
 
@@ -9,14 +9,19 @@ field can be overridden with --set section.field=value. Commands that run
 the model take --device (default cuda: without a card they raise; pass
 --device cpu to run on the CPU).
 
-Inputs: packed .cfs feature stores (cone_tpu_torch/data/store.py; the text
-feature directory holds tokens.cfs and cls.cfs) and a workdir with
-config.json and model_<tag>.ckpt, a reference-named torch checkpoint
-(train/checkpoint.py).
+Inputs: feature stores (data/store.py open_array_store: a packed .cfs file
+through the native C++ reader, or a reference LMDB directory; the text
+feature directory holds tokens.cfs and cls.cfs) and a workdir with config.json
+and model_<tag>.ckpt, a reference-named torch checkpoint, or a JAX
+workdir's model_<tag>.msgpack, read directly (train/checkpoint.py).
+`reformat` turns the challenge json into the flat jsonl the dataset reads
+and `convert-store` turns LMDB, h5, npy or pt features into a .cfs file
+(the h5py and lmdb imports happen only in their branches).
 
 `train` starts from a preset (ego4d, mad, and the 2D-TAN family's tan_ego4d,
 tan_mad) or a --config file, writes its workdir (config.json, checkpoints,
-logs) and trains on one device, or data parallel over ranks
+logs) and trains on one device (`--set train.multiscale=true`: the ECCV'22
+multiscale loader, one rank only), or data parallel over ranks
 (parallel/distributed.py), one process each:
 
     train --distributed --coordinator HOST:PORT --num_processes N --process_id I
@@ -36,8 +41,8 @@ the port's own module (models/clip.py), the counterpart of cone_tpu's
 "flax"; "hf" is the transformers torch model, the counterpart of its
 "torch". Both load released weights through transformers by name.
 
-Not ported yet: reformat, convert-store; of train, the bfloat16 *_scratch
-presets and tensor parallelism (train.tp_devices > 1).
+Not ported yet: of train, the bfloat16 *_scratch presets and tensor
+parallelism (train.tp_devices > 1).
 """
 
 from __future__ import annotations
@@ -67,28 +72,18 @@ def _apply_overrides(cfg, sets):
     return cfg
 
 
-def _open_store(path):
-    from cone_tpu_torch.data.store import PackedArrayStore
-
-    if not str(path).endswith(".cfs"):
-        raise NotImplementedError(
-            f"{path}: the port reads packed .cfs stores only; the LMDB reader and "
-            "convert-store are ROADMAP Queue 1 item 14")
-    return PackedArrayStore(path)
-
-
-def _open_dataset(cfg, data_path):
+def _open_dataset(cfg, data_path, reader="native"):
     from cone_tpu_torch.data.dataset import GroundingDataset
-    from cone_tpu_torch.data.store import TextFeatureStore
+    from cone_tpu_torch.data.store import TextFeatureStore, open_array_store
 
     d = cfg.data
-    appear = _open_store(d.appearance_feat_dir)
+    appear = open_array_store(d.appearance_feat_dir, reader)
     motion = None
     if d.motion_feat_dir and d.motion_feat_dir != d.appearance_feat_dir:
-        motion = _open_store(d.motion_feat_dir)
+        motion = open_array_store(d.motion_feat_dir, reader)
     text = TextFeatureStore(
-        _open_store(os.path.join(d.t_feat_dir, "tokens.cfs")),
-        _open_store(os.path.join(d.t_feat_dir, "cls.cfs")),
+        open_array_store(os.path.join(d.t_feat_dir, "tokens.cfs"), reader),
+        open_array_store(os.path.join(d.t_feat_dir, "cls.cfs"), reader),
     )
     return GroundingDataset(data_path, appear, text, d, video_motion_store=motion)
 
@@ -126,7 +121,7 @@ def cmd_train(args):
     if not args.dump_config:   # before any data is read or a rank joins
         from cone_tpu_torch.train.loop import check_supported
 
-        check_supported(cfg)
+        check_supported(cfg, args.num_processes or 1)
     if args.dump_config or not (args.distributed or args.mesh):
         return _train(args, cfg, args.device)
     if args.distributed:
@@ -171,7 +166,8 @@ def _train(args, cfg, device):
         eval_ds = train_ds
     else:
         train_ds = _open_dataset(cfg, cfg.data.train_path)
-        eval_ds = _open_dataset(cfg, cfg.data.eval_path) if cfg.data.eval_path else None
+        eval_ds = (_open_dataset(cfg, cfg.data.eval_path)
+                   if cfg.data.eval_path else None)
     if cfg.data.train_data_ratio != 1.0:
         # a train-split-only downsample (the reference's --train_data_ratio,
         # cone/config.py:29-32); --synthetic aliases the splits, so the eval
@@ -518,6 +514,62 @@ def cmd_extract_text(args):
     print(f"wrote text stores to {args.out}")
 
 
+def cmd_reformat(args):
+    """Challenge json -> flat jsonl (data/reformat.py): Ego4D-NLQ's nested
+    json or MAD's dict json, optionally with the train-split filter."""
+    from cone_tpu_torch.data import reformat
+    from cone_tpu_torch.utils.io import load_json, save_jsonl
+
+    raw = load_json(args.input)
+    if args.dset == "ego4d":
+        rows = reformat.reformat_ego4d(raw, test_split=args.test_split)
+        if args.filter_train:
+            rows = reformat.filter_train_ego4d(rows)
+    else:
+        rows = reformat.reformat_mad(raw)
+        if args.filter_train:
+            rows = reformat.filter_train_mad(rows)
+    save_jsonl(rows, args.output)
+    print(f"wrote {len(rows)} rows to {args.output}")
+
+
+def cmd_convert_store(args):
+    """LMDB / h5 / npy-dir / pt-dir features -> one packed .cfs store, the
+    same bytes as the JAX package's convert-store (the reference's
+    feature_extraction/misc converters). Every array is float32; a 1-D
+    .npy (a query's CLS vector) becomes one (1, D) row."""
+    import numpy as np
+
+    from cone_tpu_torch.data.store import LmdbArrayStore, write_packed_store
+
+    items = {}
+    src = args.input
+    if args.format == "lmdb":
+        store = LmdbArrayStore(src, array_key=args.array_key)
+        for k in store.keys():
+            items[k] = store.get(k)
+    elif args.format == "h5":
+        import h5py   # optional: only this branch needs it
+
+        with h5py.File(src, "r") as f:
+            for k in f.keys():
+                items[k] = np.asarray(f[k], np.float32)
+    elif args.format == "npy_dir":
+        for name in sorted(os.listdir(src)):
+            if name.endswith(".npy"):
+                arr = np.load(os.path.join(src, name)).astype(np.float32)
+                items[os.path.splitext(name)[0]] = arr[None] if arr.ndim == 1 else arr
+    else:
+        import torch
+
+        for name in sorted(os.listdir(src)):
+            if name.endswith(".pt"):
+                t = torch.load(os.path.join(src, name), map_location="cpu", weights_only=True)
+                items[os.path.splitext(name)[0]] = t.float().numpy()
+    write_packed_store(args.output, items)
+    print(f"wrote {len(items)} entries to {args.output}")
+
+
 ENGINE_HELP = ("tower = the port's CLIP module (cone_tpu's flax), hf = the transformers"
                " torch model (cone_tpu's torch); both run on --device")
 
@@ -529,6 +581,10 @@ def _refuse_unused(args, backend, flag, unused):
     if given:
         raise SystemExit(f"{', '.join(given)}: not used with {flag} {backend}" if backend
                          else f"{', '.join(given)}: not used without {flag}")
+
+
+WORKDIR_HELP = ("config.json + model_<tag>.ckpt (the port's train, or a reference torch"
+                " checkpoint), or a JAX workdir's model_<tag>.msgpack")
 
 
 def _add_device(p):
@@ -557,8 +613,9 @@ def main(argv=None):
     t.add_argument("--profile", action="store_true",
                    help="torch.profiler trace of the first epoch into <workdir>/profile")
     t.add_argument("--init_ckpt",
-                   help="weights-only warm start from a reference-named torch file"
-                        " (e.g. tools/convert_ckpt.py --export output)")
+                   help="weights-only warm start from a reference-named torch file or a"
+                        " JAX checkpoint (.msgpack: a workdir's model_<tag>.msgpack or"
+                        " tools/convert_ckpt.py --out's params file)")
     t.add_argument("--dump_config", metavar="PATH",
                    help="resolve preset/--config/--set, write the config json to PATH"
                         " and exit (no training)")
@@ -577,7 +634,7 @@ def main(argv=None):
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="evaluate a checkpoint")
-    i.add_argument("--workdir", required=True)
+    i.add_argument("--workdir", required=True, help=WORKDIR_HELP)
     i.add_argument("--ckpt", default="best")
     i.add_argument("--eval_path")
     i.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
@@ -604,7 +661,7 @@ def main(argv=None):
 
     s = sub.add_parser("serve", help="HTTP moment-retrieval server over a"
                                      " trained workdir")
-    s.add_argument("--workdir", required=True)
+    s.add_argument("--workdir", required=True, help=WORKDIR_HELP)
     s.add_argument("--ckpt", default="best")
     s.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
     s.add_argument("--host", default="127.0.0.1")
@@ -633,7 +690,7 @@ def main(argv=None):
 
     d = sub.add_parser("demo", help="video file + query text -> ranked"
                        " moments (the reference's run_on_video/run.py)")
-    d.add_argument("--workdir", required=True)
+    d.add_argument("--workdir", required=True, help=WORKDIR_HELP)
     d.add_argument("--ckpt", default="best")
     d.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
     d.add_argument("--video", required=True, help="video file (ffmpeg)")
@@ -724,6 +781,21 @@ def main(argv=None):
     n.add_argument("--top1_max_input", type=int, default=1,
                    help="rows per model fed to the clustered top-1 synthesis")
     n.set_defaults(fn=cmd_ensemble)
+
+    r = sub.add_parser("reformat", help="challenge json -> flat jsonl")
+    r.add_argument("--dset", choices=["ego4d", "mad"], required=True)
+    r.add_argument("--input", required=True)
+    r.add_argument("--output", required=True)
+    r.add_argument("--test_split", action="store_true")
+    r.add_argument("--filter_train", action="store_true")
+    r.set_defaults(fn=cmd_reformat)
+
+    c = sub.add_parser("convert-store", help="features -> packed .cfs store")
+    c.add_argument("--input", required=True)
+    c.add_argument("--output", required=True)
+    c.add_argument("--format", choices=["lmdb", "h5", "npy_dir", "pt_dir"], required=True)
+    c.add_argument("--array_key", default="features")
+    c.set_defaults(fn=cmd_convert_store)
 
     args = p.parse_args(argv)
     return args.fn(args)

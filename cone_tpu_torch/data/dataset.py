@@ -133,6 +133,33 @@ class GroundingDataset:
         cls = l2_normalize(self.text.get_cls(qid).astype(np.float32))
         return tok, cls
 
+    def sample_negative_window(self, index: int, rng: np.random.Generator):
+        """One padded standard-size negative window of the motion stream,
+        ((max_v_l, D) features, (max_v_l,) mask): what a multiscale extra
+        row needs, without building a full training sample. One draw from
+        `rng`, as cone_tpu's GroundingDataset.sample_negative_window makes."""
+        cfg = self.cfg
+        ex = self.examples[index]
+        stride = self.stride
+        _, motion = self.video_features(ex.clip_id)
+        ctx_l = len(motion)
+        n_win = math.ceil(ctx_l / stride) + 1
+        start = min(ctx_l, ex.timestamps[0] / cfg.clip_length)
+        end = min(ctx_l, ex.timestamps[1] / cfg.clip_length)
+        pos_ids = np.arange(math.floor(start / stride), math.ceil(end / stride) + 1)
+        neg_pool = sorted(set(range(n_win)) - set(pos_ids.tolist()))
+        if not neg_pool:
+            raise ValueError(f"{ex.query_id}: no negative window")
+        nidx = int(neg_pool[rng.integers(len(neg_pool))])
+        n_start = max((nidx - 1) * stride, 0)
+        n_end = min((nidx - 1) * stride + cfg.max_v_l, ctx_l)
+        sl = motion[n_start:n_end]
+        out = np.zeros((cfg.max_v_l, motion.shape[1]), np.float32)
+        out[: len(sl)] = sl
+        m = np.zeros(cfg.max_v_l, np.float32)
+        m[: len(sl)] = 1
+        return out, m
+
     def sample_train(self, index: int, rng: np.random.Generator) -> dict:
         """One training example -> a dict of fixed-shape numpy arrays."""
         cfg = self.cfg

@@ -9,10 +9,17 @@ and `model_<tag>.ckpt`, a torch file under the reference's parameter names
     {"model": state_dict, "optimizer": AdamW state, "lr_scheduler": ...,
      "epoch": n, "extra": {"best_score": ..., "es_cnt": ...}}
 
-`tools/convert_ckpt.py --export` writes the same file from a JAX workdir
-of the CONE family. A 2D-TAN workdir holds CONE_TAN names; its weights
-load from the port's own `train` or from a reference CONE_TAN state dict
-(`module.` prefixes and the golden fixtures' compact names taken too).
+A 2D-TAN workdir holds CONE_TAN names; its weights load from the port's
+own `train` or from a reference CONE_TAN state dict (`module.` prefixes
+and the golden fixtures' compact names taken too).
+
+A JAX workdir (cone_tpu's `train`) holds `model_<tag>.msgpack` instead:
+`load_model` reads it when there is no `model_<tag>.ckpt`, and
+`load_params` takes one too (or a raw {"params": ...} file of
+tools/convert_ckpt.py --out), for both families (train/jax_workdir.py).
+Only the weights cross: the optax optimizer state and the lr schedule
+have no counterpart here, so a JAX workdir is evaluated, served or
+warm-started from, not resumed.
 Tags follow the reference's three flavours (cone/train.py:181-223): `best`
 on a stop-score improvement, `latest` at every eval, periodic `e{NNNN}`.
 `extra` carries the early-stop counters, so a resumed run does not re-arm
@@ -36,6 +43,7 @@ from cone_tpu_torch.config import ConeConfig
 from cone_tpu_torch.convert import load_reference_state_dict, load_reference_tan_state_dict
 from cone_tpu_torch.models.tan import ConeTanModel
 from cone_tpu_torch.parallel import distributed
+from cone_tpu_torch.train.jax_workdir import read_msgpack, state_dict_from_jax
 
 
 def load_config(workdir: str) -> ConeConfig:
@@ -44,6 +52,10 @@ def load_config(workdir: str) -> ConeConfig:
 
 def checkpoint_path(workdir: str, tag: str) -> str:
     return os.path.join(workdir, f"model_{tag}.ckpt")
+
+
+def jax_checkpoint_path(workdir: str, tag: str) -> str:
+    return os.path.join(workdir, f"model_{tag}.msgpack")
 
 
 def _read(path: str) -> dict:
@@ -57,33 +69,47 @@ def _load_weights(model: torch.nn.Module, raw) -> None:
                            else load_reference_state_dict)(raw))
 
 
+def _load_file(path: str, model: torch.nn.Module):
+    """Strict load of a torch file, or of a flax-msgpack file (by its
+    .msgpack suffix), into `model`; returns the file's decoded contents."""
+    if path.endswith(".msgpack"):
+        raw = read_msgpack(path)
+        model.load_state_dict(state_dict_from_jax(raw, model))
+    else:
+        raw = _read(path)
+        _load_weights(model, raw)
+    return raw
+
+
 def load_model(workdir: str, tag: str = "best", device="cuda", cfg: ConeConfig = None):
     """(model, epoch): the configured family's model on `device` with the
-    weights of `model_<tag>.ckpt` (strict load), in eval mode. `cfg`
-    defaults to the workdir's config.json."""
+    weights of `model_<tag>.ckpt`, or else of a JAX workdir's
+    `model_<tag>.msgpack` (strict load), in eval mode. `cfg` defaults to
+    the workdir's config.json."""
     from cone_tpu_torch.train.loop import build_family
 
     cfg = load_config(workdir) if cfg is None else cfg
     path = checkpoint_path(workdir, tag)
     if not os.path.exists(path):
+        path = jax_checkpoint_path(workdir, tag)
+    if not os.path.exists(path):
         raise FileNotFoundError(
-            f"{path} not found: the port reads reference-named torch checkpoints; "
-            "make one from a JAX workdir with tools/convert_ckpt.py --export "
-            f"--workdir <workdir> --ckpt {tag} --out {path}")
-    raw = _read(path)
+            f"{workdir} holds neither model_{tag}.ckpt (the port's or the reference's) "
+            f"nor model_{tag}.msgpack (the JAX package's)")
     model = build_family(cfg, seed=0, device=device)
-    _load_weights(model, raw)
+    raw = _load_file(path, model)
     epoch = int(raw["epoch"]) if isinstance(raw, dict) and "epoch" in raw else 0
     return model.eval(), epoch
 
 
 def load_params(path: str, model: torch.nn.Module) -> None:
     """Weights-only warm start: load a reference-named torch file (a
-    CheckpointManager file, a reference checkpoint, or the output of
-    tools/convert_ckpt.py --export) into `model` (strict). Optimizer and
+    CheckpointManager file or a reference checkpoint), or a flax-msgpack
+    file (a JAX workdir's model_<tag>.msgpack, or tools/convert_ckpt.py
+    --out's raw {"params": ...}), into `model` (strict). Optimizer and
     epoch state in the file are ignored (the reference's --resume without
     --resume_all, cone/config.py:63-66)."""
-    _load_weights(model, _read(path))
+    _load_file(path, model)
 
 
 class CheckpointManager:

@@ -14,9 +14,12 @@ ranks of an initialized torch.distributed group (parallel/distributed.py):
 each rank trains on its row block of every global batch with the global
 batch's loss, evaluates its strided share of the videos and gathers the
 rows, so every rank holds the same weights, metrics and early-stop state.
-Not ported yet, each raising where it would be asked for: tensor parallel
-training (ROADMAP Queue 1 item 11) and the multiscale loader (item 14,
-CONE-only). `train.rng_impl` chooses a JAX PRNG and has no counterpart
+`train.multiscale` takes the ECCV'22 multiscale loader
+(data/multiscale.py: 3 extra variable-length windows per example, batches
+of 4B motion rows), CONE-only and on one rank, as cone_tpu asserts
+single-host; the eval-loss pass keeps the standard loader. Not ported yet,
+and raising where it would be asked for: tensor parallel training (ROADMAP
+Queue 1 item 11). `train.rng_impl` chooses a JAX PRNG and has no counterpart
 here: dropout masks are drawn for the global batch from a generator the
 train step seeds per step from (train.seed, global step), and each rank
 keeps its rows (models/dropout.py), as cone_tpu draws every row's mask
@@ -40,6 +43,7 @@ import torch
 
 from cone_tpu_torch.config import ConeConfig, check_tan_geometry
 from cone_tpu_torch.data.dataset import GroundingDataset, TrainLoader
+from cone_tpu_torch.data.multiscale import MultiscaleTrainLoader
 from cone_tpu_torch.data.prefetch import prefetch_iterator
 from cone_tpu_torch.eval.metrics import (
     display_recall_table,
@@ -217,16 +221,17 @@ def device_seconds(events) -> float:
     return total / 1e6
 
 
-def check_supported(cfg: ConeConfig) -> None:
-    """Raise for a configuration the port cannot train, before any work."""
+def check_supported(cfg: ConeConfig, world: int = 1) -> None:
+    """Raise for a configuration the port cannot train on `world` ranks,
+    before any work."""
     if cfg.model.model_family == "tan":
         check_tan_geometry(cfg.tan, cfg.data.max_v_l)
     if cfg.train.multiscale and cfg.model.model_family == "tan":
         raise ValueError("train.multiscale is CONE-only")
-    if cfg.train.multiscale:
-        raise NotImplementedError(
-            "train.multiscale (the multiscale loader) is not ported yet: "
-            "ROADMAP Queue 1 item 14")
+    if cfg.train.multiscale and world > 1:
+        raise ValueError(
+            f"train.multiscale runs on one rank, not {world}: its [standard; extra] batch "
+            "layout cannot be row-sliced across ranks")
     tp_size(cfg.train.tp_devices)
 
 
@@ -250,9 +255,9 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     seeded with train.seed on every rank for the run, and the caller's
     generators are left as they were. A data-parallel run needs a workdir
     every rank shares."""
-    check_supported(cfg)
-    dev = resolve_device(device)
     rank, world = distributed.rank(), distributed.world_size()
+    check_supported(cfg, world)
+    dev = resolve_device(device)
     lo, hi = row_block(cfg.train.bsz, rank, world)
     reduce = distributed.batch_reduce()
     os.makedirs(workdir, exist_ok=True)
@@ -271,7 +276,8 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     print(f"model: {cfg.model.model_family}, {n_params:,} parameters on {dev}"
           + (f", rank {rank} of {world} ({distributed.backend()})"
              if distributed.backend() else ""))
-    loader = TrainLoader(train_ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
+    loader = (MultiscaleTrainLoader if cfg.train.multiscale else TrainLoader)(
+        train_ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
     if loader.steps_per_epoch() == 0:
         raise ValueError(f"{len(train_ds)} training examples make no batch of {cfg.train.bsz}")
     tan = cfg.model.model_family == "tan"

@@ -12,6 +12,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -233,7 +234,7 @@ def test_checkpoint_and_evaluate_api(workdir):
     assert len(res["ranklists"]) == workdir["n"]
     assert res["stop_score"] == float(np.mean(res["recall_fusion"][0]))
     assert "miou_fusion" in res and res["window_recall"].shape == (5,)
-    with pytest.raises(FileNotFoundError, match="convert_ckpt.py --export"):
+    with pytest.raises(FileNotFoundError, match="model_latest.ckpt.*model_latest.msgpack"):
         load_model(workdir["run"], "latest", device="cpu")
     a, b = (build_family(cfg, seed=7, device="cpu") for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
@@ -245,9 +246,14 @@ def test_checkpoint_and_evaluate_api(workdir):
     assert type(build_family(tan, seed=0, device="meta")).__name__ == "ConeTanModel"
 
 
-def test_what_waits_raises_and_names_its_roadmap_item(workdir):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        t_cli._open_store(str(workdir["root"] / "features"))  # an LMDB directory
+def test_what_waits_raises_and_names_its_roadmap_item(workdir, monkeypatch):
+    # item 14 is in: a directory opens as an LMDB database, which needs the
+    # optional lmdb package; without it the error names convert-store
+    from cone_tpu_torch.data.store import open_array_store
+
+    monkeypatch.setitem(sys.modules, "lmdb", None)
+    with pytest.raises(ImportError, match="convert-store --format lmdb"):
+        open_array_store(str(workdir["root"] / "features"))  # an LMDB directory
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):   # tensor parallel waits
         t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d",
                 "--set", "train.tp_devices=2"])

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (coarse segment max, masked attention) on the
 card, each against its plain PyTorch version, the training step on the
 card (against the same step on the CPU, and the reference's golden
-trajectories), the 2D-TAN model's float32 guarantee and tie order on
+trajectories; a multiscale step too), the native .cfs reader built on the
+card's host, the 2D-TAN model's float32 guarantee and tie order on
 the card, and the feature towers (CLIP, EgoVLP) at full width on the card
 against the CPU, with the golden EgoVLP tower. Marked `cuda`: without a card every test here skips. The file
 imports neither jax nor cone_tpu, so it runs on a machine with PyTorch
@@ -23,6 +24,9 @@ from cone_tpu_torch.tools import bench_attn, golden_tan_train, golden_train
 pytestmark = pytest.mark.cuda
 
 REL_TOL = 1e-5  # fp32 dot products summed in another order than the matmul
+# a multiscale step's weight change per leaf, card vs CPU, relative in norm:
+# a card that skipped the update reads 1
+MULTISCALE_DW_RTOL = 0.1
 
 
 @pytest.fixture
@@ -251,6 +255,77 @@ def test_train_step_on_the_card_equals_the_cpu(card):
         assert abs(m_gpu[k] - v) <= 1e-4 * max(1.0, abs(v)), (k, m_gpu[k], v)
     for k, v in w_cpu.items():
         assert float((w_gpu[k] - v).abs().max()) <= cfg.train.lr, k
+
+
+def test_multiscale_step_on_the_card_equals_the_cpu(card):
+    """One multiscale step (4B motion rows of 2 * max_v_l, B appearance
+    rows, the adapter on) at a narrow width, on the card and on the CPU
+    from the same weights and batch: losses and grad norm within the limits
+    of the test above; each leaf's weight change within MULTISCALE_DW_RTOL
+    of the CPU's in norm (a card that skipped the update reads 1), where
+    the leaf's gradient is above float32 rounding."""
+    from cone_tpu_torch.config import ConeConfig, DataConfig, ModelConfig, TrainConfig
+    from cone_tpu_torch.data import make_synthetic_dataset
+    from cone_tpu_torch.data.multiscale import MultiscaleTrainLoader
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    cfg = ConeConfig(
+        model=ModelConfig(hidden_dim=64, nheads=4, dim_feedforward=128, t_feat_dim=32,
+                          v_motion_feat_dim=32, v_appear_feat_dim=32, max_q_l=8, max_v_l=32,
+                          dropout=0.0, input_dropout=0.0),
+        data=DataConfig(max_v_l=32, max_q_l=8, clip_length=1.0, max_windows=5),
+        train=TrainConfig(lr=1e-4, multiscale=True))
+    ds = make_synthetic_dataset(cfg.data, n_videos=4, queries_per_video=4,
+                                ctx_l_range=(40, 200), dim=32, seed=2)
+    batch = next(MultiscaleTrainLoader(ds, bsz=8, seed=0).epoch(0))
+    assert batch["pos_motion"].shape == (32, 64, 32) and batch["pos_appear"].shape[0] == 8
+    base = build_family(cfg, seed=0, device="cpu")
+    w0 = {k: v.detach().double() for k, v in base.named_parameters()}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        opt, sched = make_optimizer(model, cfg.train, steps_per_epoch=1)
+        metrics = to_floats(make_train_step(model, opt, sched, cfg)(batch, True))
+        got[dev] = (metrics, {k: v.detach().cpu().double() - w0[k]
+                              for k, v in model.named_parameters()},
+                    {k: v.grad.norm().item() for k, v in model.named_parameters()
+                     if v.grad is not None})
+    (m_cpu, dw_cpu, g_cpu), (m_gpu, dw_gpu, _) = got["cpu"], got["cuda"]
+    assert "loss_adapter" in m_cpu
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-4 * max(1.0, abs(v)), (k, m_gpu[k], v)
+    # not held: a leaf whose gradient is float32 rounding (chip_smoke.py's
+    # DATA_GRAD_FLOOR), where Adam turns noise into a step of up to lr
+    g_all = sum(g * g for g in g_cpu.values()) ** 0.5
+    compared = [k for k, d in dw_cpu.items()
+                if d.norm() > 0 and g_cpu.get(k, 0.0) >= 1e-6 * g_all]
+    assert len(compared) > len(dw_cpu) // 2
+    for k in compared:
+        err = float((dw_gpu[k] - dw_cpu[k]).norm() / dw_cpu[k].norm())
+        assert err <= MULTISCALE_DW_RTOL, (k, err)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])
+def test_native_reader_on_the_cards_host(card, tmp_path, dtype):
+    """The native .cfs reader built with g++ on the card's machine: get and
+    read_batch equal to the pure-numpy reader, exactly."""
+    from cone_tpu_torch.data.native_store import NativePackedStore
+    from cone_tpu_torch.data.store import PackedArrayStore, write_packed_store
+
+    rng = np.random.default_rng(0)
+    items = {f"v{i}": rng.normal(size=(int(rng.integers(1, 300)), 256)).astype(dtype)
+             for i in range(40)}
+    write_packed_store(str(tmp_path / "f.cfs"), items)
+    native, plain = NativePackedStore(str(tmp_path / "f.cfs")), PackedArrayStore(
+        str(tmp_path / "f.cfs"))
+    for k, v in items.items():
+        got = native.get(k)
+        assert got.dtype == v.dtype and np.array_equal(got, v) and np.array_equal(got, plain.get(k))
+    keys = list(items)[::3] + ["missing"]
+    for (a, la), (b, lb) in [(native.read_batch(keys, 180), plain.read_batch(keys, 180))]:
+        assert np.array_equal(a, b) and np.array_equal(la, lb) and la[-1] == 0
 
 
 @pytest.mark.parametrize("ctx,q,d,stride,l_pad,spb", [

@@ -435,12 +435,21 @@ def test_tensorboard_writer_on_request(cfg, ds, tmp_path, monkeypatch):
     ("train", "tp_devices", 2, "item 11"),
     ("train", "multiscale", True, "item 14"),
 ])
-def test_unported_training_options_raise(cfg, ds, tmp_path, section, field, value, item):
+def test_unported_training_options_raise(cfg, ds, tmp_path, monkeypatch, section, field,
+                                         value, item):
     bad = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **{field: value})})
     if item == "item 10":
         # the 2D-TAN family trains now (tests/test_torch_tan_train.py): what
         # raises, before the workdir exists, is a map that does not fit the window
         with pytest.raises(ValueError, match="TAN geometry"):
+            train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
+    elif item == "item 14":
+        # the multiscale loader trains now (tests/test_torch_multiscale.py):
+        # what raises, before the workdir exists, is a group of more than one rank
+        from cone_tpu_torch.parallel import distributed
+
+        monkeypatch.setattr(distributed, "world_size", lambda: 2)
+        with pytest.raises(ValueError, match="multiscale runs on one rank, not 2"):
             train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
     else:
         with pytest.raises(NotImplementedError, match=item):
