@@ -77,7 +77,18 @@ Phases, each of which raises (exit code != 0) on failure:
      dropout 0 (losses, grad norm, each leaf's weight change); (d) `infer`
      (the native reader) and evaluate over the eval split opened with the
      Python reader, equal answers;
- 12. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+ 12. bfloat16 compute (scratch_phase): (a) ego4d_scratch at full width (2
+     heads of 128, bf16), one forward card vs CPU, fused inference over the
+     main path's corpus through the coarse kernel, the first chunk's
+     ranklists and moments against the CPU port, warm queries/s, device
+     time, GEMM share and launches of ego4d (fp32, 8 heads), ego4d with 2
+     heads (fp32) and ego4d_scratch; (b) `train` at ego4d_scratch, bsz 32,
+     2 epochs, one eval epoch through the coarse kernel, step ms, launches
+     and device ms a step beside float32; (c) 3 bf16 steps at dropout 0,
+     card vs CPU: losses, terms, grad norm, weight change; (d) mad and
+     mad_scratch over a 2-hour synthetic movie (36 864 frames) through the
+     coarse kernel at its MAD record shape: device time and queries/s;
+ 13. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -647,16 +658,17 @@ def training_phase(card, device="cuda"):
     return meas, launches
 
 
-def near_tie_flips(pipe_off, ds, ranklists, ranklists_off):
-    """Ranklists with the coarse kernel on against the plain path's: where
-    they differ, the kernel's order scored by the plain version must still
-    descend up to REL_TOL (only near-ties may swap). Returns (identical
-    queries, window flips)."""
+def near_tie_flips(pipe_off, ds, ranklists, ranklists_off, tol=REL_TOL):
+    """Ranklists against those of `pipe_off` (the plain coarse path, or the
+    CPU): where they differ, the first order scored by pipe_off's window
+    scores must still descend up to `tol` relative (only near-ties may
+    swap). Returns (identical queries, window flips)."""
     import numpy as np
     import torch
 
     from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
 
+    dev = pipe_off.device
     diff = [q for q in ranklists if ranklists[q] != ranklists_off[q]]
     flips = 0
     for qid in diff:
@@ -664,13 +676,13 @@ def near_tie_flips(pipe_off, ds, ranklists, ranklists_off):
         appear, a_scale, _, _, ctx_l = pipe_off._device_video(ex.clip_id)
         with torch.inference_mode():
             adapted = pipe_off._adapt(pipe_off._decode(appear, a_scale))[None]
-            cls = torch.from_numpy(ds.query_features(qid)[1]).cuda()[None, None]
+            cls = torch.from_numpy(ds.query_features(qid)[1]).to(dev)[None, None]
             s, _ = window_scores_from_frame_scores(
-                cls @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device="cuda"),
+                cls @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device=dev),
                 pipe_off.stride, num_windows(ctx_l, pipe_off.stride))
         s = s[0, 0].cpu().numpy()[ranklists[qid]]
-        check(bool((s[:-1] >= s[1:] - REL_TOL * np.maximum(1.0, np.abs(s[1:]))).all()),
-              f"{qid}: ranklists with the kernel on/off differ beyond near-ties")
+        check(bool((s[:-1] >= s[1:] - tol * np.maximum(1.0, np.abs(s[1:]))).all()),
+              f"{qid}: ranklists differ beyond near-ties ({tol:.1e} relative)")
         flips += sum(a != b for a, b in zip(ranklists[qid], ranklists_off[qid]))
     return len(ranklists) - len(diff), flips
 
@@ -796,7 +808,8 @@ def _device_us(evt, self_only):
 def device_breakdown(fn):
     """torch.profiler over one call of fn: (wall s with the profiler on,
     device s, {op: device s of the kernels it launched itself} for the
-    convolution, LSTM and linear ops, the key_averages table). Self time:
+    convolution, LSTM and linear ops, the key_averages table, kernel
+    launches: the runtime's launch calls, cuBLAS's included). Self time:
     an op's total also counts the profiler's "Command Buffer Full" spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -815,7 +828,8 @@ def device_breakdown(fn):
         if e.key in ("aten::cudnn_convolution", "aten::convolution_backward", "aten::_cudnn_rnn",
                      "aten::_cudnn_rnn_backward", "aten::addmm", "aten::mm", "aten::bmm"):
             ops[e.key] = _device_us(e, True) / 1e6
-    return wall, busy, ops, avgs.table(sort_by="self_cuda_time_total", row_limit=12)
+    launches = sum(e.count for e in avgs if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    return wall, busy, ops, avgs.table(sort_by="self_cuda_time_total", row_limit=12), launches
 
 
 def tan_inference_phase(card, device="cuda"):
@@ -882,7 +896,7 @@ def tan_inference_phase(card, device="cuda"):
         pipe.run(host_postproc=False, fused=True)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
-    prof_wall, busy, ops, table = device_breakdown(
+    prof_wall, busy, ops, table, _ = device_breakdown(
         lambda: pipe.run(host_postproc=False, fused=True))
     conv_s = ops.get("aten::cudnn_convolution", 0.0)
     print(table)
@@ -995,7 +1009,7 @@ def tan_training_phase(card, device="cuda"):
                                cfg.loss.neg_loss, cfg.loss.adapter_loss_coef)
     batch = batch_to_device(next(TrainLoader(ds, bsz=cfg.train.bsz, seed=1).epoch(0)), device)
     to_floats(step(batch, True))   # warm: the new optimizer's state
-    prof_wall, busy, ops, table = device_breakdown(lambda: to_floats(step(batch, True)))
+    prof_wall, busy, ops, table, _ = device_breakdown(lambda: to_floats(step(batch, True)))
     conv_s = ops.get("aten::cudnn_convolution", 0.0) + ops.get("aten::convolution_backward", 0.0)
     print(table)
     print(f"TAN train step, profiled: wall {prof_wall:.4f} s, device {busy:.4f} s (busy share "
@@ -1765,6 +1779,41 @@ def _host_cpu():
     return f"{model or 'CPU model not reported'} ({platform.machine()}), {os.cpu_count()} cores"
 
 
+def steps_on_cpu_and_card(cfg, batches):
+    """The train step over `batches` from one seeded model, on the CPU and on
+    the card: (metrics per step, each leaf's weight change over the steps in
+    float64, each step's gradients on the host) by device. Every gradient and
+    parameter must stay float32 (the bfloat16 path computes in bf16 over
+    float32 parameters)."""
+    import copy as copy_mod
+
+    import torch
+
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    base = build_family(cfg, seed=0, device="cpu")
+    w0 = {n: p.detach().double() for n, p in base.named_parameters()}
+    got, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = copy_mod.deepcopy(base).to(dev)
+        opt, sched = make_optimizer(m, cfg.train, steps_per_epoch=len(batches))
+        step = make_train_step(m, opt, sched, cfg)
+        metrics, grads[dev] = [], []
+        for b in batches:
+            metrics.append(to_floats(step(b, True)))
+            gs = {n: p.grad for n, p in m.named_parameters() if p.grad is not None}
+            check(all(g.dtype == torch.float32 for g in gs.values()),
+                  f"a non-float32 .grad on {dev}")
+            grads[dev].append({n: g.detach().cpu().clone() for n, g in gs.items()})
+        check(all(p.dtype == torch.float32 for p in m.parameters()),
+              f"a parameter is no longer float32 on {dev}")
+        got[dev] = (metrics, {n: p.detach().cpu().double() - w0[n]
+                              for n, p in m.named_parameters()})
+    return got, grads
+
+
 def data_phase(card, standard_step_ms, reader_build_s):
     """The data layer on the card's machine, at the Ego4D preset's widths
     (256-d video features, the leaderboard recipe's 512-d CLIP text tokens,
@@ -1789,8 +1838,6 @@ def data_phase(card, standard_step_ms, reader_build_s):
     the eval split opened with the Python reader (`reader="python"`):
     equal ranklists and moments. Returns (measurements, coarse launches by
     run)."""
-    import copy as copy_mod
-
     import numpy as np
     import torch
 
@@ -1803,9 +1850,7 @@ def data_phase(card, standard_step_ms, reader_build_s):
     from cone_tpu_torch.kernels import build
     from cone_tpu_torch.ops import coarse as co
     from cone_tpu_torch.train.checkpoint import load_config, load_model
-    from cone_tpu_torch.train.loop import build_family, evaluate
-    from cone_tpu_torch.train.optim import make_optimizer
-    from cone_tpu_torch.train.step import make_train_step, to_floats
+    from cone_tpu_torch.train.loop import evaluate
     from cone_tpu_torch.utils.io import load_jsonl, save_jsonl
 
     t_phase = time.time()
@@ -1974,22 +2019,8 @@ def data_phase(card, standard_step_ms, reader_build_s):
             train=dataclasses.replace(c_cfg.train, multiscale=True, start_epoch_for_adapter=-1))
         c_batches = list(itertools.islice(MultiscaleTrainLoader(train_ds, bsz=8, seed=1)
                                           .epoch(0), 3))
-        base = build_family(c_cfg, seed=0, device="cpu")
-        w0 = {n: p.detach().double() for n, p in base.named_parameters()}
-        got, grads = {}, {}
         t0 = time.time()
-        for dev in ("cpu", "cuda"):
-            m = copy_mod.deepcopy(base).to(dev)
-            opt, sched = make_optimizer(m, c_cfg.train, steps_per_epoch=3)
-            step = make_train_step(m, opt, sched, c_cfg)
-            metrics, grads[dev] = [], []
-            for b in c_batches:
-                metrics.append(to_floats(step(b, True)))
-                grads[dev].append({n: p.grad.detach().cpu().clone()
-                                   for n, p in m.named_parameters() if p.grad is not None})
-            # each leaf's change over the 3 steps, exact in float64
-            got[dev] = (metrics, {n: p.detach().cpu().double() - w0[n]
-                                  for n, p in m.named_parameters()})
+        got, grads = steps_on_cpu_and_card(c_cfg, c_batches)
         meas["card_vs_cpu_s"] = time.time() - t0
         metric_err, worst = 0.0, ""
         for m_cpu, m_gpu in zip(got["cpu"][0], got["cuda"][0]):
@@ -2098,6 +2129,403 @@ def data_phase(card, standard_step_ms, reader_build_s):
     del model
     torch.cuda.empty_cache()
     meas["phase_s"] = time.time() - t_phase
+    return meas, launches
+
+
+BF16_STEP = 2.0 ** -8          # one bfloat16 step of a value in [1, 2)
+SCRATCH_FWD_RTOL = 2 * BF16_STEP   # card vs CPU, each bfloat16 forward output, relative in norm
+SCRATCH_RTOL = 3e-3            # card vs CPU, losses, terms, grad norm: relative to max(1, |v|)
+SCRATCH_DW_RTOL = 0.3          # card vs CPU, the weight change of all leaves together
+SCRATCH_LEAF_DW_RTOL = 0.75    # ... of each leaf above the floor: a skipped update reads 1
+SCRATCH_GRAD_FLOOR = 1e-3      # a leaf's gradient / the model's below which bf16 noise rules it
+SCRATCH_FOUND = 0.5            # share of the CPU's moments the card finds to the bit
+SCRATCH_MAD_FRAMES = 36864     # a 2-hour movie at 0.2 s a feature: the MAD record shape
+SCRATCH_TRAIN = (8, 32)        # train videos x queries: 8 steps of bsz 32 an epoch
+
+
+def profile_counts(fn):
+    """device_breakdown's wall, device s, GEMM share (the kernels aten::mm,
+    addmm and bmm launched themselves) and launches, as a dict."""
+    wall, busy, ops, _, launches = device_breakdown(fn)
+    gemm = sum(ops.get(k, 0.0) for k in ("aten::addmm", "aten::mm", "aten::bmm"))
+    return dict(profiled_wall_s=wall, device_s=busy, gemm_share=gemm / busy,
+                launches=launches)
+
+
+def _found_to_the_bit(subs, want_subs, window_s):
+    """Per modality: the share of want_subs' moments whose span subs holds
+    to the bit for the same query, the largest distance of one of them from
+    the nearest of subs' spans in bfloat16 steps of the window, and the
+    largest matching score difference over the moments found."""
+    import numpy as np
+
+    out = {}
+    for name, rows in want_subs.items():
+        got = {r["query_id"]: np.asarray(r["predicted_times"]) for r in subs[name]}
+        found = n = 0
+        far = score = 0.0
+        for r in rows:
+            g = got[r["query_id"]]
+            for w in np.asarray(r["predicted_times"]):
+                d = np.abs(g[:, :2] - w[:2]).max(1)
+                i = int(d.argmin())
+                n += 1
+                far = max(far, float(d[i]) / (BF16_STEP * window_s))
+                if d[i] == 0:
+                    found += 1
+                    if name == "matching":
+                        score = max(score, abs(float(g[i, 2] - w[2])))
+        out[name] = dict(found=found / n, steps=far, score=score)
+    return out
+
+
+def scratch_phase(card, ds, standard_step_ms):
+    """bfloat16 compute (model.compute_dtype): the from-scratch presets on
+    the card. `ds` is the main path's planted corpus (4 videos x 64
+    queries). Card-only: no device knob.
+    (a) ego4d_scratch at full width (hidden 256, 2 heads of 128, 2+2
+    layers, FFN 1024), the main path's seeded weights: one bf16 forward of
+    32 windows on the card against the port's CPU forward; fused inference
+    over the corpus through the coarse kernel (one launch per dispatch);
+    the first query chunk's ranklists (near-tie flips counted) and moments
+    against the CPU port; warm queries/s, device time, GEMM share and
+    launches per run of ego4d (float32, 8 heads), ego4d with nheads=2
+    (float32) and ego4d_scratch (bfloat16, 2 heads), in turns.
+    (b) `train` at ego4d_scratch, bsz 32, 2 epochs of 8 steps, the first
+    profiled, one eval epoch through the coarse kernel: warm ms per step,
+    device ms per step; launches and device ms per step of 3 profiled steps
+    of ego4d (float32) and ego4d_scratch (bf16) in this process.
+    (c) 3 steps at dropout 0, bsz 8, card against CPU from the same weights
+    and batches: losses, terms and grad norm; the weight change of all
+    leaves and of each leaf; every gradient float32.
+    (d) mad_scratch and mad (float32) fused inference at MAD width: one
+    synthetic 2-hour movie (36 864 frames, 512-d) and 32 queries through
+    the coarse kernel at its MAD record shape (B 1, Q 32, L 36 864, D 512,
+    stride 62), then 30 windows a query of 145 tokens: device time and
+    queries/s. Returns (measurements, coarse launches by run)."""
+    import copy as copy_mod
+
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import (
+        ego4d_config, ego4d_scratch_config, mad_config, mad_scratch_config,
+    )
+    from cone_tpu_torch.convert import load_reference_state_dict, random_reference_state_dict
+    from cone_tpu_torch.data import TrainLoader
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cone_tpu_torch.eval.pipeline import InferencePipeline
+    from cone_tpu_torch.models.cone import ConeModel
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.train.loop import build_family, train
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    t_phase = time.time()
+    device = "cuda"
+    meas, launches = {"card": card}, {}
+
+    def evaluating(cfg, **model):
+        return cfg.replace(model=dataclasses.replace(cfg.model, **model),
+                           eval=dataclasses.replace(cfg.eval, query_chunk=32,
+                                                    use_pallas_coarse=True))
+
+    def seeded(cfg, dev, sd):
+        m = ConeModel(cfg.model, device=dev)
+        m.load_state_dict(sd)
+        return m.eval()
+
+    def timed_runs(pipe, n_q, n=3):
+        pipe.run(host_postproc=False, fused=True)   # warm
+        walls = []
+        for _ in range(n):
+            t0 = time.time()
+            pipe.run(host_postproc=False, fused=True)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        prof = profile_counts(lambda: pipe.run(host_postproc=False, fused=True))
+        return dict(wall_s=walls, queries_per_s=n_q / float(np.median(walls)), **prof)
+
+    # (a) ego4d_scratch at full width
+    variants = {"ego4d_fp32_8h": evaluating(ego4d_config()),
+                "ego4d_fp32_2h": evaluating(ego4d_config(), nheads=2),
+                "ego4d_scratch_bf16_2h": evaluating(ego4d_scratch_config())}
+    scfg = variants["ego4d_scratch_bf16_2h"]
+    check((scfg.model.compute_dtype, scfg.model.nheads) == ("bfloat16", 2), "not the preset")
+    sd = load_reference_state_dict(random_reference_state_dict(scfg.model, seed=0))
+    m_card, m_cpu = seeded(scfg, device, sd), seeded(scfg, "cpu", sd)
+    rng = np.random.default_rng(0)
+    mc, b = scfg.model, 32
+    tmask = (np.arange(mc.max_q_l)[None] < rng.integers(4, mc.max_q_l + 1, b)[:, None])
+    vmask = (np.arange(mc.max_v_l)[None] < rng.integers(30, mc.max_v_l + 1, b)[:, None])
+    x = [rng.normal(size=(b, mc.max_q_l, mc.t_feat_dim)), tmask,
+         rng.normal(size=(b, mc.max_v_l, mc.v_motion_feat_dim)), vmask]
+    x = [torch.from_numpy(np.asarray(a, np.float32)) for a in x]
+    with torch.no_grad():
+        out_card = m_card(*(a.to(device) for a in x))
+        out_cpu = m_cpu(*x)
+    fwd_err = {}
+    for k in ("pred_logits", "pred_spans", "saliency_scores"):
+        check(out_card[k].dtype == torch.float32, f"bf16 forward: {k} is {out_card[k].dtype}")
+        g, w = out_card[k].cpu().double(), out_cpu[k].double()
+        fwd_err[k] = float((g - w).norm() / w.norm())
+    meas["forward_card_vs_cpu_rel"] = fwd_err
+    print(f"scratch (a): ego4d_scratch full width (hidden {mc.hidden_dim}, {mc.nheads} heads "
+          f"of {mc.hidden_dim // mc.nheads}, {mc.enc_layers}+{mc.dec_layers} layers, FFN "
+          f"{mc.dim_feedforward}, compute {mc.compute_dtype}), one forward of {b} windows, "
+          f"card vs CPU, relative in norm: "
+          f"{ {k: f'{v:.2e}' for k, v in fwd_err.items()} } (limit {SCRATCH_FWD_RTOL:.2e})",
+          flush=True)
+    check(max(fwd_err.values()) <= SCRATCH_FWD_RTOL, f"bf16 forward card vs CPU: {fwd_err}")
+
+    qc = scfg.eval.query_chunk
+    dispatches = sum(-(-len([e for e in ds.examples if e.clip_id == v]) // qc)
+                     for v in ds.video_ids)
+    pipe = InferencePipeline(m_card, ds, scfg, device=device)
+    co.coarse_segment_max.launches = 0
+    subs, ranklists = pipe.run(host_postproc=False, fused=True)
+    torch.cuda.synchronize()
+    launches["scratch_inference"] = co.coarse_segment_max.launches
+    check(launches["scratch_inference"] == dispatches,
+          f"scratch fused run: {launches['scratch_inference']} coarse launches for "
+          f"{dispatches} dispatches")
+    well_formed_runs(subs, len(ds.examples), scfg.eval.max_after_nms, "scratch fused")
+
+    # the first query chunk on the CPU port
+    sub = copy_mod.copy(ds)
+    first = ds.video_ids[0]
+    sub.examples = [e for e in ds.examples if e.clip_id == first][:qc]
+    pipe_cpu = InferencePipeline(m_cpu, sub, scfg, device="cpu")
+    t0 = time.time()
+    subs_cpu, rank_cpu = pipe_cpu.run(host_postproc=False, fused=True)
+    cpu_s = time.time() - t0
+    rank_card = {q: ranklists[q] for q in rank_cpu}
+    subs_card = {m: [r for r in rows if r["query_id"] in rank_cpu] for m, rows in subs.items()}
+    same, flips = near_tie_flips(pipe_cpu, sub, rank_card, rank_cpu, tol=BF16_STEP)
+    agree = _found_to_the_bit(subs_card, subs_cpu, scfg.data.max_v_l * scfg.data.clip_length)
+    meas.update(cpu_ranklists_identical=same, cpu_ranklist_flips=flips, cpu_moments=agree)
+    print(f"scratch (a): fused run through the coarse kernel, {launches['scratch_inference']} "
+          f"launches for {dispatches} dispatches; the first chunk ({len(sub.examples)} "
+          f"queries of {first}) against the CPU port ({cpu_s:.1f} s): ranklists "
+          f"{same}/{len(rank_cpu)} identical, {flips} near-tie window flips (bf16 step "
+          f"{BF16_STEP:.1e}); moments found to the bit "
+          f"{ {m: round(a['found'], 3) for m, a in agree.items()} } (limit {SCRATCH_FOUND}), "
+          f"the rest within { {m: round(a['steps'], 2) for m, a in agree.items()} } bf16 steps "
+          f"of the window, matching score of those found within "
+          f"{agree['matching']['score']:.1e}", flush=True)
+    for m, a in agree.items():
+        check(a["found"] >= SCRATCH_FOUND and a["score"] <= SCORE_ATOL,
+              f"scratch card vs CPU moments, {m}: {a}")
+
+    n_q = len(ds.examples)
+    runs = {}
+    for name, cfg in variants.items():
+        m = m_card if name == "ego4d_scratch_bf16_2h" else seeded(cfg, device, sd)
+        runs[name] = timed_runs(InferencePipeline(m, ds, cfg, device=device), n_q)
+        del m
+    meas["inference"] = runs
+    for name, r in runs.items():
+        print(f"scratch (a): {name}: warm fused runs {[round(w, 4) for w in r['wall_s']]} s -> "
+              f"{r['queries_per_s']:.1f} queries/s ({n_q} queries); profiled run: device "
+              f"{r['device_s'] * 1e3:.2f} ms, GEMM share {r['gemm_share']:.3f}, "
+              f"{r['launches']} kernel launches, wall {r['profiled_wall_s']:.4f} s (busy share "
+              f"{r['device_s'] / r['profiled_wall_s']:.3f}) [{card}]", flush=True)
+    del m_card, m_cpu, pipe, pipe_cpu
+
+    # (b) train at ego4d_scratch
+    tcfg = ego4d_scratch_config()
+    tcfg = tcfg.replace(
+        data=dataclasses.replace(tcfg.data, dset_name="synthetic"),
+        train=dataclasses.replace(tcfg.train, bsz=32, n_epoch=2, start_epoch_for_adapter=1,
+                                  eval_epoch_interval=2),
+        eval=dataclasses.replace(tcfg.eval, use_pallas_coarse=True))
+    n_videos, qpv = SCRATCH_TRAIN
+    tds = make_synthetic_dataset(tcfg.data, n_videos=n_videos, queries_per_video=qpv,
+                                 ctx_l_range=(1500, 2305), dim=tcfg.model.v_appear_feat_dim,
+                                 signal=3.0, seed=1)
+    t_dispatches = n_videos * -(-qpv // tcfg.eval.query_chunk)
+    with tempfile.TemporaryDirectory() as wd:
+        co.coarse_segment_max.launches = 0
+        t0 = time.time()
+        model, history = train(tcfg, tds, tds, wd, profile=True, device=device)
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        launches["scratch_train_eval"] = co.coarse_segment_max.launches
+        with open(os.path.join(wd, "config.json")) as f:
+            saved = json.load(f)["model"]
+    check(saved["compute_dtype"] == "bfloat16", f"the workdir's config says {saved}")
+    check(launches["scratch_train_eval"] == t_dispatches,
+          f"scratch eval epoch: {launches['scratch_train_eval']} coarse launches")
+    for h in history:
+        bad = {k: v for k, v in h.items() if k.startswith(("loss", "eval_loss", "grad_norm"))
+               and not np.isfinite(v)}
+        check(not bad, f"scratch epoch {h['epoch']}: non-finite {bad}")
+    n_steps = len(history[0]["step_times"])
+    warm_ms = float(np.median(history[1]["step_times"])) * 1e3
+    tmeas = dict(warm_step_ms_median=warm_ms, train_s=train_s,
+                 eval_seconds=history[1].get("eval_seconds"),
+                 loss=[h["loss_overall"] for h in history],
+                 float32_warm_step_ms_median_training_phase=standard_step_ms)
+    if "profile_device_s" in history[0]:
+        tmeas["profiled_epoch_device_ms_per_step"] = history[0]["profile_device_s"] / n_steps * 1e3
+    del model
+
+    def profiled_steps(cfg, n=3):
+        m = build_family(cfg, seed=0, device=device)
+        loader = TrainLoader(tds, bsz=cfg.train.bsz, seed=0)
+        batches = list(itertools.islice(itertools.chain.from_iterable(
+            loader.epoch(e) for e in itertools.count()), 2 + n))
+        opt, sched = make_optimizer(m, cfg.train, loader.steps_per_epoch())
+        step = make_train_step(m, opt, sched, cfg)
+        for bt in batches[:2]:
+            to_floats(step(bt, True))
+        walls = []
+
+        def run():
+            for bt in batches[2:]:
+                t0 = time.time()
+                to_floats(step(bt, True))
+                walls.append(time.time() - t0)
+        r = profile_counts(run)
+        return dict(step_ms_profiled=float(np.median(walls)) * 1e3,
+                    device_ms_per_step=r["device_s"] / n * 1e3, gemm_share=r["gemm_share"],
+                    launches_per_step=r["launches"] / n)
+
+    f32cfg = ego4d_config()
+    f32cfg = f32cfg.replace(data=tcfg.data, train=tcfg.train, eval=tcfg.eval)
+    tmeas["profiled_steps"] = {"ego4d_fp32_8h": profiled_steps(f32cfg),
+                               "ego4d_scratch_bf16_2h": profiled_steps(tcfg)}
+    meas["train"] = tmeas
+    ps = tmeas["profiled_steps"]
+    print(f"scratch (b): train --preset ego4d_scratch, bsz 32, {n_videos} videos x {qpv} "
+          f"queries, 2 epochs of {n_steps} steps in {train_s:.2f} s, losses "
+          f"{[round(v, 4) for v in tmeas['loss']]}, eval epoch {tmeas['eval_seconds']:.3f} s with "
+          f"{launches['scratch_train_eval']} coarse launches for {t_dispatches} dispatches; warm "
+          f"step median {warm_ms:.2f} ms (host clock) beside the float32 training phase's "
+          f"{standard_step_ms:.2f} ms; profiled first epoch "
+          f"{tmeas.get('profiled_epoch_device_ms_per_step', float('nan')):.2f} device ms a step "
+          f"[{card}]", flush=True)
+    for name, r in ps.items():
+        print(f"scratch (b): 3 profiled steps, {name}: {r['launches_per_step']:.0f} launches "
+              f"and {r['device_ms_per_step']:.2f} device ms a step (GEMM share "
+              f"{r['gemm_share']:.3f}), {r['step_ms_profiled']:.2f} ms a step with the "
+              f"profiler on [{card}]", flush=True)
+
+    # (c) 3 steps at dropout 0, card against CPU
+    ccfg = tcfg.replace(model=dataclasses.replace(tcfg.model, dropout=0.0, input_dropout=0.0),
+                        train=dataclasses.replace(tcfg.train, bsz=8))
+    c_batches = list(itertools.islice(TrainLoader(tds, bsz=8, seed=1).epoch(0), 3))
+    t0 = time.time()
+    got, grads = steps_on_cpu_and_card(ccfg, c_batches)
+    c_s = time.time() - t0
+    # losses and grad norm; class_error (the share of matched queries whose
+    # argmax is wrong, in steps of 100 / bsz) is printed, not held: a logit
+    # pair a bf16 step apart may flip its argmax
+    metric_err, worst = 0.0, ""
+    for m_cpu_, m_dev in zip(got["cpu"][0], got["cuda"][0]):
+        for k, v in m_cpu_.items():
+            e = abs(m_dev[k] - v) / max(1.0, abs(v))
+            if not k.startswith("class_error") and e > metric_err:
+                metric_err, worst = e, k
+    class_err = [(m_dev[k], m_cpu_[k]) for m_cpu_, m_dev in zip(got["cpu"][0], got["cuda"][0])
+                 for k in m_cpu_ if k.startswith("class_error")]
+    # the key third of a packed in-projection bias has no gradient in exact
+    # arithmetic (it adds one constant to a softmax row), so the thirds of
+    # each bias are leaves of their own here
+    d = ccfg.model.hidden_dim
+    thirds = {n: [f"{n}[{part}]" for part in "qkv"] for n in got["cpu"][1]
+              if n.endswith("in_proj_bias")}
+
+    def split(tree):
+        out = {}
+        for n, v in tree.items():
+            if n in thirds:
+                out.update(zip(thirds[n], (v[:d], v[d : 2 * d], v[2 * d :])))
+            else:
+                out[n] = v
+        return out
+
+    got = {dev: (ms, split(dw)) for dev, (ms, dw) in got.items()}
+    grads = {dev: [split(gs) for gs in g] for dev, g in grads.items()}
+    dw_cpu, dw_dev = got["cpu"][1], got["cuda"][1]
+    dw_all = float(torch.cat([(dw_dev[n] - d).flatten() for n, d in dw_cpu.items()]).norm()
+                   / torch.cat([d.flatten() for d in dw_cpu.values()]).norm())
+    # a leaf whose gradient is a bf16 rounding of the others' (a key bias
+    # under softmax, the saliency bias under a margin loss) is listed, not
+    # held: Adam's first steps move each entry by about lr in the sign of
+    # its gradient, so noise moves it as far as signal
+    g_all = [torch.cat([g.flatten() for g in gs.values()]).norm() for gs in grads["cpu"]]
+    g_share = {n: max(float(gs[n].norm() / ga) if n in gs else 0.0
+                      for gs, ga in zip(grads["cpu"], g_all)) for n in dw_cpu}
+    leaf_err = {n: float((dw_dev[n] - d).norm() / d.norm())
+                for n, d in dw_cpu.items() if d.norm() > 0}
+    noise = {n: (g_share[n], leaf_err.get(n)) for n in sorted(dw_cpu)
+             if g_share[n] < SCRATCH_GRAD_FLOOR}
+    held = {n: e for n, e in leaf_err.items() if n not in noise}
+    still = [n for n, d in dw_cpu.items() if not d.norm() > 0]
+    moved = [n for n in still if dw_dev[n].abs().max() > 0]
+    worst_leaf = max(held, key=held.get)
+    meas["card_vs_cpu"] = dict(metric_rel_err=metric_err, worst_metric=worst,
+                               class_error_card_cpu=class_err,
+                               dw_all_rel_err=dw_all, dw_worst_leaf=worst_leaf,
+                               dw_worst_leaf_rel_err=held[worst_leaf],
+                               dw_leaf_median=float(np.median(list(held.values()))),
+                               rounding_leaves=noise, unchanged_leaves=still, seconds=c_s)
+    top = sorted(held.items(), key=lambda kv: -kv[1])[:4]
+    print(f"scratch (c): 3 bf16 steps at dropout 0, bsz 8, card vs CPU on the same batches "
+          f"({c_s:.1f} s): losses, terms and grad norm within {metric_err:.2e} (worst {worst}; "
+          f"limit {SCRATCH_RTOL}); class_error (card, CPU) by step and layer {class_err}; "
+          f"weight change of all leaves within {dw_all:.3f} relative "
+          f"(limit {SCRATCH_DW_RTOL}); per leaf median "
+          f"{meas['card_vs_cpu']['dw_leaf_median']:.3f}, worst "
+          f"{', '.join(f'{n} {e:.3f}' for n, e in top)} (limit {SCRATCH_LEAF_DW_RTOL}); "
+          f"gradient below {SCRATCH_GRAD_FLOOR} of the model's, listed, not held: "
+          f"{ {n: (f'{g:.1e}', e if e is None else round(e, 3)) for n, (g, e) in noise.items()} }; "
+          f"unchanged on the CPU {still}, moved on the card {moved}; every .grad float32",
+          flush=True)
+    check(metric_err <= SCRATCH_RTOL, f"scratch card vs CPU: {worst} off by {metric_err}")
+    check(dw_all <= SCRATCH_DW_RTOL, f"scratch card vs CPU: weight change off by {dw_all}")
+    check(held[worst_leaf] <= SCRATCH_LEAF_DW_RTOL,
+          f"scratch card vs CPU: {worst_leaf}'s weight change off by {held[worst_leaf]}")
+    check(not moved, f"scratch card vs CPU: the card moved leaves the CPU left: {moved}")
+
+    # (d) MAD width: mad (float32, 8 heads) and mad_scratch (bf16, 2 heads)
+    mvariants = {"mad_fp32_8h": evaluating(mad_config()),
+                 "mad_scratch_bf16_2h": evaluating(mad_scratch_config())}
+    mcfg = mvariants["mad_scratch_bf16_2h"]
+    mds = make_synthetic_dataset(mcfg.data, n_videos=1, queries_per_video=32,
+                                 ctx_l_range=(SCRATCH_MAD_FRAMES, SCRATCH_MAD_FRAMES + 1),
+                                 dim=mcfg.model.v_appear_feat_dim, signal=3.0, seed=2)
+    msd = load_reference_state_dict(random_reference_state_dict(mcfg.model, seed=0))
+    mpipe = None
+    mruns = {}
+    for name, cfg in mvariants.items():
+        mpipe = InferencePipeline(seeded(cfg, device, msd), mds, cfg, device=device)
+        l_pad = mpipe._bucket_len(SCRATCH_MAD_FRAMES)
+        co.coarse_segment_max.launches = 0
+        msubs, _ = mpipe.run(host_postproc=False, fused=True)
+        torch.cuda.synchronize()
+        n_launch = co.coarse_segment_max.launches
+        check(n_launch == 1, f"{name}: {n_launch} coarse launches, want 1")
+        well_formed_runs(msubs, 32, cfg.eval.max_after_nms, name)
+        if name == "mad_scratch_bf16_2h":
+            launches["scratch_mad"] = n_launch
+        mruns[name] = dict(coarse_shape=f"B 1, Q 32, L {l_pad}, D "
+                                        f"{cfg.model.v_appear_feat_dim}, stride {mpipe.stride}",
+                           tokens=cfg.data.max_v_l + cfg.model.max_q_l,
+                           windows_per_query=cfg.data.topk_window,
+                           **timed_runs(mpipe, 32))
+    meas["mad"] = mruns
+    for name, r in mruns.items():
+        print(f"scratch (d): {name}: coarse at {r['coarse_shape']}, then "
+              f"{r['windows_per_query']} windows a query of {r['tokens']} tokens; warm runs "
+              f"{[round(w, 4) for w in r['wall_s']]} s -> {r['queries_per_s']:.1f} queries/s; "
+              f"profiled run: device {r['device_s'] * 1e3:.2f} ms, GEMM share "
+              f"{r['gemm_share']:.3f}, {r['launches']} launches [{card}]", flush=True)
+    del mpipe
+    torch.cuda.empty_cache()
+    meas["phase_s"] = time.time() - t_phase
+    print(f"scratch phase {meas['phase_s']:.1f} s", flush=True)
     return meas, launches
 
 
@@ -2382,6 +2810,9 @@ def main():
     # 11. the data layer: stores, convert-store, multiscale training, readers in infer
     data, data_launches = data_phase(smi, training["warm_step_ms_median"], reader_build_s)
 
+    # 12. bfloat16 compute: the ego4d_scratch and mad_scratch presets
+    scratch, scratch_launches = scratch_phase(smi, ds, training["warm_step_ms_median"])
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -2391,11 +2822,12 @@ def main():
         source="cone_tpu_torch/csrc/coarse_segment_max.cu",
         replaces="cone_tpu/ops/pallas_coarse.py:66",
         launches=(launches + train_launches + tan_launches + tan_train_launches
-                  + sum(par_launches.values()) + demo_launches + sum(data_launches.values())),
+                  + sum(par_launches.values()) + demo_launches + sum(data_launches.values())
+                  + sum(scratch_launches.values())),
         launches_by_path={"inference": launches, "train_eval": train_launches,
                           "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
                           **{f"parallel_{k}": v for k, v in par_launches.items()},
-                          "demo": demo_launches, **data_launches},
+                          "demo": demo_launches, **data_launches, **scratch_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -2418,7 +2850,8 @@ def main():
         bfloat16=dict(max_abs_err=attn_err["bfloat16"], **{k: a16[k] for k in keys})))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
-                      "parallel": parallel, "towers": towers, "data": data, "card": smi}))
+                      "parallel": parallel, "towers": towers, "data": data,
+                      "scratch": scratch, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -18,7 +18,8 @@ workdir's model_<tag>.msgpack, read directly (train/checkpoint.py).
 and `convert-store` turns LMDB, h5, npy or pt features into a .cfs file
 (the h5py and lmdb imports happen only in their branches).
 
-`train` starts from a preset (ego4d, mad, and the 2D-TAN family's tan_ego4d,
+`train` starts from a preset (ego4d, mad, their bfloat16 from-scratch
+variants ego4d_scratch, mad_scratch, and the 2D-TAN family's tan_ego4d,
 tan_mad) or a --config file, writes its workdir (config.json, checkpoints,
 logs) and trains on one device (`--set train.multiscale=true`: the ECCV'22
 multiscale loader, one rank only), or data parallel over ranks
@@ -41,8 +42,7 @@ the port's own module (models/clip.py), the counterpart of cone_tpu's
 "flax"; "hf" is the transformers torch model, the counterpart of its
 "torch". Both load released weights through transformers by name.
 
-Not ported yet: of train, the bfloat16 *_scratch presets and tensor
-parallelism (train.tp_devices > 1).
+Not ported yet: of train, tensor parallelism (train.tp_devices > 1).
 """
 
 from __future__ import annotations
@@ -97,14 +97,8 @@ def _load_cfg(args):
     if args.config:
         # a user-supplied file: unknown keys are typos, fail loudly
         cfg = C.ConeConfig.load(args.config, strict=True)
-    elif not args.preset.endswith("_scratch"):
-        cfg = {"ego4d": C.ego4d_config, "mad": C.mad_config,
-               "tan_ego4d": C.tan_ego4d_config, "tan_mad": C.tan_mad_config}[args.preset]()
     else:
-        raise NotImplementedError(
-            f"--preset {args.preset}: its bfloat16 compute_dtype is not ported (the "
-            "port's model runs float32 only); train with --preset "
-            f"{args.preset[:-len('_scratch')]}")
+        cfg = getattr(C, f"{args.preset}_config")()
     return _apply_overrides(cfg, args.set)
 
 
@@ -599,8 +593,9 @@ def main(argv=None):
     t = sub.add_parser("train", help="train a CONE or 2D-TAN model")
     t.add_argument("--config", help="a config json (strict: unknown keys raise)")
     t.add_argument("--preset", choices=PRESETS, default="ego4d",
-                   help="ego4d, mad and the 2D-TAN tan_ego4d, tan_mad train; the"
-                        " bfloat16 *_scratch presets are not ported yet and raise")
+                   help="ego4d, mad (float32, the reference geometry), their"
+                        " from-scratch variants ego4d_scratch, mad_scratch (2 heads,"
+                        " bfloat16 compute), and the 2D-TAN tan_ego4d, tan_mad")
     t.add_argument("--set", action="append", metavar="SEC.FIELD=VAL")
     t.add_argument("--workdir", required=True)
     t.add_argument("--train_path")

@@ -16,6 +16,9 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     hidden_dim: int = 256
@@ -37,11 +40,17 @@ class ModelConfig:
     span_loss_type: str = "l1"
     max_q_l: int = 20
     max_v_l: int = 90
-    # transformer compute dtype ("float32" | "bfloat16"); params stay float32
+    # CONE's compute dtype (COMPUTE_DTYPES); params stay float32, and the
+    # 2D-TAN head ignores it, as cone_tpu's does
     compute_dtype: str = "float32"
     # encoder sequence pad multiple. A layout pad of the JAX package: masked
     # positions change no valid output, so the port reads and ignores it.
     seq_pad_multiple: int = 1
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"model.compute_dtype={self.compute_dtype!r}: the port runs "
+                             f"{' or '.join(map(repr, COMPUTE_DTYPES))}")
 
 
 @dataclass(frozen=True)
@@ -248,6 +257,16 @@ def ego4d_config() -> ConeConfig:
     )
 
 
+def ego4d_scratch_config() -> ConeConfig:
+    """ego4d_config() for training a new model: nheads 2 (head dim 128, the
+    same parameter count) and bfloat16 compute, as cone_tpu's preset of the
+    same name. Converted reference checkpoints need nheads 8 and float32,
+    so the plain preset keeps the reference geometry."""
+    cfg = ego4d_config()
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, nheads=2, seq_pad_multiple=16, compute_dtype="bfloat16"))
+
+
 def mad_config() -> ConeConfig:
     """Canonical MAD CLIP config (cone/scripts/train_mad.sh:20-42)."""
     return ConeConfig(
@@ -262,6 +281,14 @@ def mad_config() -> ConeConfig:
         eval=EvalConfig(ctx_buckets=(8192, 16384, 24576, 36864, 49152),
                         fused_train_eval=True),
     )
+
+
+def mad_scratch_config() -> ConeConfig:
+    """mad_config() for training a new model: nheads 2 and bfloat16 compute,
+    as cone_tpu's preset of the same name."""
+    cfg = mad_config()
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, nheads=2, seq_pad_multiple=16, compute_dtype="bfloat16"))
 
 
 def tan_ego4d_config() -> ConeConfig:

@@ -6,6 +6,11 @@ and the proposal <-> query matching head. The batch is (windows x queries)
 flattened: windows are rows. Parameter names are the reference's
 state-dict names, so `load_state_dict` takes a reference checkpoint or a
 golden fixture's `w::` tensors as they are.
+
+model.compute_dtype is applied as cone_tpu applies it (models/transformer.py):
+every Dense runs in it, every LayerNorm and the sine and text position
+embeddings in float32; the span sigmoid runs in the compute dtype, before
+the outputs are cast to float32. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from torch import nn
 
 from cone_tpu_torch.config import ModelConfig
 from cone_tpu_torch.models.dropout import RowDropout
-from cone_tpu_torch.models.transformer import LN_EPS, DetrTransformer
+from cone_tpu_torch.models.transformer import Dense, DetrTransformer, LayerNorm
 from cone_tpu_torch.ops.pooling import (
     matching_scores_pred,
     matching_sim_gt,
@@ -42,16 +47,25 @@ def sine_position_embedding(mask: torch.Tensor, num_pos_feats: int,
                        dim=3).flatten(2)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid in x's dtype: in bfloat16 XLA's 1 / (1 + exp(-x)),
+    each step rounded to bfloat16; float32 takes torch.sigmoid."""
+    if x.dtype == torch.float32:
+        return x.sigmoid()
+    return 1 / (1 + torch.exp(-x))
+
+
 class LinearLayer(nn.Module):
     """[LayerNorm ->] Dropout -> Linear [-> ReLU] (cone/model.py:443-465);
     `net` = (RowDropout, Linear), hence the reference's `net.1` names."""
 
     def __init__(self, in_dim, out_dim, layer_norm=True, dropout=0.1, relu=True,
-                 device=None):
+                 compute_dtype=torch.float32, device=None):
         super().__init__()
         self.relu = relu
-        self.LayerNorm = nn.LayerNorm(in_dim, eps=LN_EPS, device=device) if layer_norm else None
-        self.net = nn.Sequential(RowDropout(dropout), nn.Linear(in_dim, out_dim, device=device))
+        self.LayerNorm = LayerNorm(in_dim, device) if layer_norm else None
+        self.net = nn.Sequential(RowDropout(dropout),
+                                 Dense(in_dim, out_dim, compute_dtype, device))
 
     def forward(self, x):
         if self.LayerNorm is not None:
@@ -63,12 +77,13 @@ class LinearLayer(nn.Module):
 class MLP(nn.Module):
     """Plain ReLU MLP (cone/model.py:428-440)."""
 
-    def __init__(self, input_dim, hidden_dim, output_dim, num_layers, device=None):
+    def __init__(self, input_dim, hidden_dim, output_dim, num_layers,
+                 compute_dtype=torch.float32, device=None):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1)
         outs = [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(i, o, device=device) for i, o in zip(dims, outs))
+            Dense(i, o, compute_dtype, device) for i, o in zip(dims, outs))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -84,7 +99,7 @@ class TrainableTextPos(nn.Module):
     def __init__(self, max_len, hidden, dropout, device=None):
         super().__init__()
         self.position_embeddings = nn.Embedding(max_len, hidden, device=device)
-        self.LayerNorm = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.LayerNorm = LayerNorm(hidden, device)
         self.dropout = RowDropout(dropout)
 
     def forward(self, x):
@@ -106,16 +121,15 @@ class ConeModel(nn.Module):
     `txt_position_embed` always exists, as in the reference model, and is
     used only with cfg.use_txt_pos. model.seq_pad_multiple, a layout pad of
     the JAX package that changes no valid output, is not applied here.
+    model.compute_dtype "float32" or "bfloat16" (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only")
         dev = resolve_device(device)
         self.cfg = cfg
         c = cfg
+        dt = getattr(torch, c.compute_dtype)
         relu_args = [True, True, True]
         relu_args[c.n_input_proj - 1] = False
 
@@ -123,22 +137,22 @@ class ConeModel(nn.Module):
             return nn.Sequential(*[
                 LinearLayer(in_dim if i == 0 else c.hidden_dim, c.hidden_dim,
                             layer_norm=True, dropout=c.input_dropout,
-                            relu=relu_args[i], device=dev)
+                            relu=relu_args[i], compute_dtype=dt, device=dev)
                 for i in range(c.n_input_proj)])
 
         self.input_txt_proj = proj(c.t_feat_dim)
         self.input_vid_proj = proj(c.v_motion_feat_dim)
         self.transformer = DetrTransformer(
             c.hidden_dim, c.nheads, c.enc_layers, c.dec_layers,
-            c.dim_feedforward, c.dropout, c.pre_norm, device=dev)
+            c.dim_feedforward, c.dropout, c.pre_norm, dt, device=dev)
         self.query_embed = nn.Embedding(c.num_queries, c.hidden_dim, device=dev)
-        self.span_embed = MLP(c.hidden_dim, c.hidden_dim, 2, 3, device=dev)
-        self.class_embed = nn.Linear(c.hidden_dim, 2, device=dev)
-        self.saliency_proj = nn.Linear(c.hidden_dim, 1, device=dev)
+        self.span_embed = MLP(c.hidden_dim, c.hidden_dim, 2, 3, dt, device=dev)
+        self.class_embed = Dense(c.hidden_dim, 2, dt, device=dev)
+        self.saliency_proj = Dense(c.hidden_dim, 1, dt, device=dev)
         self.txt_position_embed = TrainableTextPos(
             c.max_q_l, c.hidden_dim, c.input_dropout, device=dev)
         self.adapter_layer = (
-            MLP(c.v_appear_feat_dim, c.hidden_dim, c.v_appear_feat_dim, 2, device=dev)
+            MLP(c.v_appear_feat_dim, c.hidden_dim, c.v_appear_feat_dim, 2, dt, device=dev)
             if c.adapter_module == "linear" else None)
 
     def forward(self, src_txt, src_txt_mask, src_vid_motion, src_vid_motion_mask):
@@ -147,7 +161,7 @@ class ConeModel(nn.Module):
 
         Returns dict: pred_logits (B, NQ, 2), pred_spans (B, NQ, 2) sigmoid
         cxw, saliency_scores (B, Lv), aux_outputs: [{pred_logits,
-        pred_spans}] per earlier decoder layer."""
+        pred_spans}] per earlier decoder layer; all float32."""
         c = self.cfg
         vid = self.input_vid_proj(src_vid_motion)
         txt = self.input_txt_proj(src_txt)
@@ -158,15 +172,16 @@ class ConeModel(nn.Module):
         pos = torch.cat([pos_vid, pos_txt], dim=1)
 
         hs, memory = self.transformer(src, mask, self.query_embed.weight, pos)
-        outputs_class = self.class_embed(hs)
+        outputs_class = self.class_embed(hs).float()
         outputs_coord = self.span_embed(hs)
         if c.span_loss_type == "l1":
-            outputs_coord = outputs_coord.sigmoid()
+            outputs_coord = sigmoid(outputs_coord)   # in the compute dtype
+        outputs_coord = outputs_coord.float()
         vid_mem = memory[:, : src_vid_motion.shape[1]]
         return {
             "pred_logits": outputs_class[-1],
             "pred_spans": outputs_coord[-1],
-            "saliency_scores": self.saliency_proj(vid_mem)[..., 0],
+            "saliency_scores": self.saliency_proj(vid_mem)[..., 0].float(),
             "aux_outputs": [{"pred_logits": a, "pred_spans": b}
                             for a, b in zip(outputs_class[:-1], outputs_coord[:-1])],
         }

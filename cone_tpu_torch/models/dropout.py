@@ -64,8 +64,10 @@ class RowDropout(nn.Module):
         gen, n_rows, lo = (None, x.shape[0], 0) if rows is None else rows
         if lo + x.shape[0] > n_rows:
             raise ValueError(f"rows {lo}:{lo + x.shape[0]} outside a global batch of {n_rows}")
+        # float32 uniforms whatever x's dtype (flax's bernoulli draws in
+        # float32): a bfloat16 run keeps the float32 run's masks
         u = torch.rand((n_rows,) + tuple(x.shape[1:]), generator=gen, device=x.device,
-                       dtype=x.dtype)[lo : lo + x.shape[0]]
+                       dtype=torch.float32)[lo : lo + x.shape[0]]
         scale = 0.0 if self.p == 1.0 else 1.0 / (1.0 - self.p)
         return x * (u >= self.p).to(x.dtype) * scale
 

@@ -10,6 +10,15 @@ Attention is an explicit matmul + softmax with key padding as an additive
 -1e30 (transformer.py:91-94 of the JAX package): a boolean mask in
 scaled_dot_product_attention would turn fully masked rows into NaN.
 Dropout draws its masks for the global batch (models/dropout.py).
+
+Compute dtype (model.compute_dtype), flax's semantics op by op, not
+torch.autocast's: parameters stay float32; a `Dense` (and the packed
+in-projection) casts its input, weight and bias to the compute dtype and
+returns that dtype (`dense`); logits, the mask, softmax and the attention
+dropout stay in it; every `LayerNorm` computes in float32 and returns
+float32, as flax's LayerNorm without a dtype does; residual adds promote
+as jnp's do (bfloat16 + float32 is float32). In float32 every cast is a
+no-op.
 """
 
 from __future__ import annotations
@@ -26,17 +35,66 @@ NEG_INF = -1e30
 LN_EPS = 1e-5
 
 
+def dense(x, weight, bias, dtype):
+    """flax's nn.Dense(dtype=...) over float32 parameters: x, the weight and
+    the bias cast to `dtype`, the product rounded to it and the bias added
+    in it, two roundings as XLA's dot and add make them. One rounding (the
+    bias fused into the product) reads no closer to cone_tpu's bfloat16
+    path than float32 compute does (PERF.md section 2). float32 fuses."""
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
+
+
+class Dense(nn.Linear):
+    """nn.Linear computed in `compute_dtype` (`dense`). The state-dict names
+    are nn.Linear's."""
+
+    def __init__(self, in_features, out_features, compute_dtype=torch.float32,
+                 device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm that computes in float32 and returns float32 whatever
+    the input's dtype: flax's nn.LayerNorm over float32 parameters."""
+
+    def __init__(self, dim, device=None):
+        super().__init__(dim, eps=LN_EPS, device=device)
+
+    def forward(self, x):
+        return super().forward(x.float())
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis in x's dtype. In bfloat16 the
+    shifted exponentials, their sum and the quotient are each rounded to
+    bfloat16, as jnp rounds them; float32 takes torch.softmax."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(-1, keepdim=True).detach())
+    return e / e.sum(-1, keepdim=True)
+
+
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed (3D, D) in-proj with
     row blocks [q | k | v]), computed with only the rows each input needs."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.1,
-                 device=None):
+                 compute_dtype=torch.float32, device=None):
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
+        self.compute_dtype = compute_dtype
+        # the logit scale rounded to the compute dtype, as jnp rounds a
+        # weakly typed scalar
+        self.scale = torch.tensor((d_model // nhead) ** -0.5, dtype=compute_dtype).item()
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
-        self.out_proj = nn.Linear(d_model, d_model, device=device)
+        self.out_proj = Dense(d_model, d_model, compute_dtype, device=device)
         self.dropout = RowDropout(dropout)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
@@ -45,24 +103,24 @@ class MultiheadAttention(nn.Module):
         """query (B, Lq, D), key/value (B, Lk, D), key_padding_mask (B, Lk)
         True = ignore. Self-attention (query is key) projects q and k in
         one matmul."""
-        d, h = self.d_model, self.nhead
-        w, bias = self.in_proj_weight, self.in_proj_bias
+        d, h, dt = self.d_model, self.nhead, self.compute_dtype
+        w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         if query is key:
-            q, k = F.linear(query, w[: 2 * d], bias[: 2 * d]).split(d, dim=-1)
+            q, k = dense(query, w[: 2 * d], bias[: 2 * d], dt).split(d, dim=-1)
         else:
-            q = F.linear(query, w[:d], bias[:d])
-            k = F.linear(key, w[d : 2 * d], bias[d : 2 * d])
-        v = F.linear(value, w[2 * d :], bias[2 * d :])
+            q = dense(query, w[:d], bias[:d], dt)
+            k = dense(key, w[d : 2 * d], bias[d : 2 * d], dt)
+        v = dense(value, w[2 * d :], bias[2 * d :], dt)
 
         def split(x):
             b, l, _ = x.shape
             return x.reshape(b, l, h, d // h).transpose(1, 2)  # (B, H, L, hd)
 
         q, k, v = split(q), split(k), split(v)
-        logits = (q * (d // h) ** -0.5) @ k.transpose(-1, -2)
+        logits = (q * self.scale) @ k.transpose(-1, -2)
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
-        weights = self.dropout(torch.softmax(logits, dim=-1))
+        weights = self.dropout(softmax(logits))
         out = (weights @ v).transpose(1, 2)
         return self.out_proj(out.reshape(out.shape[0], out.shape[1], d))
 
@@ -71,14 +129,14 @@ class EncoderLayer(nn.Module):
     """cone/transformer.py:211-268."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout, pre_norm=False,
-                 device=None):
+                 compute_dtype=torch.float32, device=None):
         super().__init__()
         self.pre_norm = pre_norm
-        self.self_attn = MultiheadAttention(d_model, nhead, dropout, device=device)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout, compute_dtype, device)
+        self.linear1 = Dense(d_model, dim_feedforward, compute_dtype, device)
+        self.linear2 = Dense(dim_feedforward, d_model, compute_dtype, device)
+        self.norm1 = LayerNorm(d_model, device)
+        self.norm2 = LayerNorm(d_model, device)
         self.dropout = RowDropout(dropout)
 
     def _ffn(self, x):
@@ -99,16 +157,17 @@ class DecoderLayer(nn.Module):
     """cone/transformer.py:271-353."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout, pre_norm=False,
-                 device=None):
+                 compute_dtype=torch.float32, device=None):
         super().__init__()
         self.pre_norm = pre_norm
-        self.self_attn = MultiheadAttention(d_model, nhead, dropout, device=device)
-        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout, device=device)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout, compute_dtype, device)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout, compute_dtype,
+                                                 device)
+        self.linear1 = Dense(d_model, dim_feedforward, compute_dtype, device)
+        self.linear2 = Dense(dim_feedforward, d_model, compute_dtype, device)
+        self.norm1 = LayerNorm(d_model, device)
+        self.norm2 = LayerNorm(d_model, device)
+        self.norm3 = LayerNorm(d_model, device)
         self.dropout = RowDropout(dropout)
 
     def _ffn(self, x):
@@ -135,7 +194,7 @@ class _Stack(nn.Module):
     """`layers` + optional final `norm`: the reference's TransformerEncoder /
     TransformerDecoder containers, kept for their state-dict names."""
 
-    def __init__(self, layers, norm: Optional[nn.LayerNorm]):
+    def __init__(self, layers, norm: Optional[LayerNorm]):
         super().__init__()
         self.layers = nn.ModuleList(layers)
         self.norm = norm
@@ -147,17 +206,19 @@ class DetrTransformer(nn.Module):
 
     def __init__(self, d_model=256, nhead=8, num_encoder_layers=2,
                  num_decoder_layers=2, dim_feedforward=1024, dropout=0.1,
-                 pre_norm=False, device=None):
+                 pre_norm=False, compute_dtype=torch.float32, device=None):
         super().__init__()
         self.pre_norm = pre_norm
         self.encoder = _Stack(
-            [EncoderLayer(d_model, nhead, dim_feedforward, dropout, pre_norm, device)
+            [EncoderLayer(d_model, nhead, dim_feedforward, dropout, pre_norm, compute_dtype,
+                          device)
              for _ in range(num_encoder_layers)],
-            nn.LayerNorm(d_model, eps=LN_EPS, device=device) if pre_norm else None)
+            LayerNorm(d_model, device) if pre_norm else None)
         self.decoder = _Stack(
-            [DecoderLayer(d_model, nhead, dim_feedforward, dropout, pre_norm, device)
+            [DecoderLayer(d_model, nhead, dim_feedforward, dropout, pre_norm, compute_dtype,
+                          device)
              for _ in range(num_decoder_layers)],
-            nn.LayerNorm(d_model, eps=LN_EPS, device=device))
+            LayerNorm(d_model, device))
         for p in self.parameters():
             if p.dim() > 1:
                 nn.init.xavier_uniform_(p)

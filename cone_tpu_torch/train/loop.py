@@ -14,7 +14,10 @@ ranks of an initialized torch.distributed group (parallel/distributed.py):
 each rank trains on its row block of every global batch with the global
 batch's loss, evaluates its strided share of the videos and gathers the
 rows, so every rank holds the same weights, metrics and early-stop state.
-`train.multiscale` takes the ECCV'22 multiscale loader
+CONE runs at either model.compute_dtype (float32, or bfloat16 as the
+*_scratch presets set it: models/transformer.py); the parameters, the
+criterion, the gradient clip and AdamW stay float32, with no loss scaling,
+as in cone_tpu. `train.multiscale` takes the ECCV'22 multiscale loader
 (data/multiscale.py: 3 extra variable-length windows per example, batches
 of 4B motion rows), CONE-only and on one rank, as cone_tpu asserts
 single-host; the eval-loss pass keeps the standard loader. Not ported yet,
@@ -223,7 +226,9 @@ def device_seconds(events) -> float:
 
 def check_supported(cfg: ConeConfig, world: int = 1) -> None:
     """Raise for a configuration the port cannot train on `world` ranks,
-    before any work."""
+    before any work. (A model.compute_dtype the model cannot run never gets
+    this far: ModelConfig refuses it when the config is made, --set
+    included.)"""
     if cfg.model.model_family == "tan":
         check_tan_geometry(cfg.tan, cfg.data.max_v_l)
     if cfg.train.multiscale and cfg.model.model_family == "tan":

@@ -13,6 +13,11 @@ are drawn for the global batch from one generator seeded per step from
 (train.seed, global step), and each rank keeps its row block of them
 (models/dropout.py), so N ranks take the single run's steps with dropout
 on too.
+
+At model.compute_dtype bfloat16 the forwards compute in bfloat16 over the
+float32 parameters (models/transformer.py), so every gradient is float32;
+the criterion, the gradient norm, the clip and AdamW stay float32, with no
+loss scaling and no autocast, as in cone_tpu/train/step.py.
 """
 
 from __future__ import annotations

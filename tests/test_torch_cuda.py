@@ -1,7 +1,8 @@
 """The port's CUDA kernels (coarse segment max, masked attention) on the
 card, each against its plain PyTorch version, the training step on the
 card (against the same step on the CPU, and the reference's golden
-trajectories; a multiscale step too), the native .cfs reader built on the
+trajectories; a multiscale step too; a bfloat16 forward and step), the
+native .cfs reader built on the
 card's host, the 2D-TAN model's float32 guarantee and tie order on
 the card, and the feature towers (CLIP, EgoVLP) at full width on the card
 against the CPU, with the golden EgoVLP tower. Marked `cuda`: without a card every test here skips. The file
@@ -305,6 +306,83 @@ def test_multiscale_step_on_the_card_equals_the_cpu(card):
     for k in compared:
         err = float((dw_gpu[k] - dw_cpu[k]).norm() / dw_cpu[k].norm())
         assert err <= MULTISCALE_DW_RTOL, (k, err)
+
+
+# bfloat16 compute (model.compute_dtype), card vs CPU: chip_smoke.py's limits
+BF16_FWD_RTOL = 2.0 ** -7   # each forward output, relative in norm: two bf16 steps
+BF16_RTOL = 3e-3            # losses, terms, grad norm, relative to max(1, |v|)
+BF16_DW_RTOL = 0.3          # the weight change of all leaves together: a skipped update reads 1
+
+
+def _bf16_cfg():
+    from cone_tpu_torch.config import ConeConfig, DataConfig, ModelConfig, TrainConfig
+
+    return ConeConfig(
+        model=ModelConfig(hidden_dim=64, nheads=2, dim_feedforward=128, t_feat_dim=32,
+                          v_motion_feat_dim=32, v_appear_feat_dim=32, max_q_l=8, max_v_l=32,
+                          dropout=0.0, input_dropout=0.0, compute_dtype="bfloat16"),
+        data=DataConfig(max_v_l=32, max_q_l=8, clip_length=1.0, max_windows=5),
+        train=TrainConfig(lr=1e-4))
+
+
+def test_bf16_forward_on_the_card_equals_the_cpu(card):
+    """One bfloat16 forward (2 heads) of 16 windows on the card and on the
+    CPU from the same weights: float32 outputs, each within BF16_FWD_RTOL
+    relative in norm (cuBLAS sums in another order, which flips a bfloat16
+    rounding now and then)."""
+    from cone_tpu_torch.train.loop import build_family
+
+    cfg = _bf16_cfg()
+    base = build_family(cfg, seed=0, device="cpu").eval()
+    rng = np.random.default_rng(4)
+    m = cfg.model
+    x = [rng.normal(size=(16, m.max_q_l, m.t_feat_dim)),
+         np.arange(m.max_q_l)[None] < rng.integers(2, m.max_q_l + 1, 16)[:, None],
+         rng.normal(size=(16, m.max_v_l, m.v_motion_feat_dim)),
+         np.arange(m.max_v_l)[None] < rng.integers(8, m.max_v_l + 1, 16)[:, None]]
+    x = [torch.from_numpy(np.asarray(a, np.float32)) for a in x]
+    with torch.no_grad():
+        want = base(*x)
+        got = copy.deepcopy(base).to(card)(*(a.to(card) for a in x))
+    for k in ("pred_logits", "pred_spans", "saliency_scores"):
+        assert got[k].dtype == torch.float32, k
+        err = float((got[k].cpu().double() - want[k].double()).norm() / want[k].double().norm())
+        assert err <= BF16_FWD_RTOL, (k, err)
+
+
+def test_bf16_train_step_on_the_card_equals_the_cpu(card):
+    """One bfloat16 train step at dropout 0, adapter on, on the card and on
+    the CPU from the same weights and batch: losses, terms and grad norm
+    within BF16_RTOL (class_error, an argmax count, is not held), the
+    weight change of all leaves within BF16_DW_RTOL in norm, every
+    gradient and parameter float32."""
+    from cone_tpu_torch.data import TrainLoader, make_synthetic_dataset
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    cfg = _bf16_cfg()
+    ds = make_synthetic_dataset(cfg.data, n_videos=4, queries_per_video=4,
+                                ctx_l_range=(100, 200), dim=32, seed=2)
+    batch = next(TrainLoader(ds, bsz=16, seed=0).epoch(0))
+    base = build_family(cfg, seed=0, device="cpu")
+    w0 = {k: v.detach().double() for k, v in base.named_parameters()}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        opt, sched = make_optimizer(model, cfg.train, steps_per_epoch=1)
+        metrics = to_floats(make_train_step(model, opt, sched, cfg)(batch, True))
+        assert all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
+                   for p in model.parameters())
+        got[dev] = (metrics, {k: v.detach().cpu().double() - w0[k]
+                              for k, v in model.named_parameters()})
+    (m_cpu, dw_cpu), (m_gpu, dw_gpu) = got["cpu"], got["cuda"]
+    for k, v in m_cpu.items():   # class_error moves in steps of 100 / bsz: not a loss
+        if not k.startswith("class_error"):
+            assert abs(m_gpu[k] - v) <= BF16_RTOL * max(1.0, abs(v)), (k, m_gpu[k], v)
+    err = float(torch.cat([(dw_gpu[k] - d).flatten() for k, d in dw_cpu.items()]).norm()
+                / torch.cat([d.flatten() for d in dw_cpu.values()]).norm())
+    assert err <= BF16_DW_RTOL, err
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])

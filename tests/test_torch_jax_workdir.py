@@ -12,7 +12,11 @@ load_params on cone_tpu's own files, for both model families.
     2D-TAN, against cone_tpu's `infer` CLI on the same workdir: equal
     ranklists, kept moments within spans atol 1e-3 / scores atol 2e-3
     (tests/test_torch_cli.py's test_infer_matches_cone_tpu_cli limits);
-  * `train --init_ckpt` of a .msgpack: the same weights as the file.
+  * `train --init_ckpt` of a .msgpack: the same weights as the file;
+  * a workdir that cone_tpu's `train --preset ego4d_scratch` wrote
+    (bfloat16 compute, 2 heads), narrowed: the port's `infer` against
+    cone_tpu's, equal ranklists, moments within tests/test_torch_bf16.py's
+    limits.
 """
 
 import dataclasses
@@ -289,3 +293,57 @@ def test_train_init_ckpt_takes_a_msgpack(jax_workdir, tmp_path):
     sd = torch.load(os.path.join(out, "model_e0000.ckpt"), weights_only=True)["model"]
     for k, v in _expected_state_dict(wd).items():
         assert torch.equal(sd[k], v), k
+
+
+def test_infer_on_a_jax_scratch_workdir_matches_cone_tpu(tmp_path, capsys):
+    """A workdir that cone_tpu's own `train --preset ego4d_scratch` wrote
+    (narrowed: hidden 32, 2 heads, 2+2 layers; bfloat16 compute, float32
+    model_latest.msgpack) through the port's `infer`, against cone_tpu's
+    `infer` on it: equal window ranklists, at least half of cone_tpu's
+    moments found to the bit (tests/test_torch_bf16.py), their matching
+    scores within 1e-2."""
+    from tests.test_torch_bf16 import assert_bf16_moments, moment_agreement
+
+    sets = ["model.hidden_dim=32", "model.dim_feedforward=64", f"model.t_feat_dim={DIM}",
+            f"model.v_motion_feat_dim={DIM}", f"model.v_appear_feat_dim={DIM}",
+            "model.max_v_l=16", "model.max_q_l=8", "data.dset_name=synthetic",
+            "data.max_v_l=16", "data.max_q_l=8", "data.clip_length=1.0",
+            "data.topk_window=4", "data.max_ctx_l=512", "train.n_epoch=1",
+            "train.eval_epoch_interval=1", "train.bsz=8", "eval.query_chunk=4"]
+    run = str(tmp_path / "run")
+    j_main(["train", "--preset", "ego4d_scratch", "--synthetic", "--debug", "--workdir", run]
+           + [x for kv in sets for x in ("--set", kv)])
+    assert not [f for f in os.listdir(run) if f.endswith(".ckpt")]
+    cfg = ConeConfig.load(os.path.join(run, "config.json"))
+    assert (cfg.model.compute_dtype, cfg.model.nheads, cfg.model.seq_pad_multiple) == (
+        "bfloat16", 2, 16)
+    data_cfg, n = _write_data(tmp_path, cfg, n_videos=3, queries_per_video=3,
+                              ctx_l_range=(50, 110), seed=0)
+    d = data_cfg.data
+    base = ["infer", "--workdir", run, "--ckpt", "latest", "--save_all",
+            "--eval_path", d.eval_path,
+            "--set", f"data.appearance_feat_dir={d.appearance_feat_dir}",
+            "--set", f"data.t_feat_dir={d.t_feat_dir}", "--set", "train.debug=false"]
+    t_dir, j_dir = str(tmp_path / "t"), str(tmp_path / "j")
+    t_main(base + ["--results_dir", t_dir, "--device", "cpu"])
+    j_main(base + ["--results_dir", j_dir])
+    capsys.readouterr()
+    names = sorted(os.listdir(t_dir))
+    assert names == sorted(os.listdir(j_dir)) and "inference_latest_windows.jsonl" in names
+    assert (load_jsonl(os.path.join(t_dir, "inference_latest_windows.jsonl"))
+            == load_jsonl(os.path.join(j_dir, "inference_latest_windows.jsonl")))
+    preds = [name for name in names if name.endswith("preds.jsonl")]
+    got = {name: load_jsonl(os.path.join(t_dir, name)) for name in preds}
+    want = {name: load_jsonl(os.path.join(j_dir, name)) for name in preds}
+    assert len(preds) == 3 and all(len(rows) == n for rows in got.values())
+    modality = {"inference_latest_preds.jsonl": "fusion",
+                "inference_latest_proposal_preds.jsonl": "proposal",
+                "inference_latest_matching_preds.jsonl": "matching"}
+    agree = moment_agreement({modality[k]: v for k, v in got.items()},
+                             {modality[k]: v for k, v in want.items()},
+                             d.max_v_l * d.clip_length)
+    print("moments against cone_tpu's infer:", agree)
+    # the staged path's spans are equal in 4-dp seconds, not in the window
+    # fractions it pools: a span a bfloat16 step apart below that may pool
+    # one clip more or less, so the matching score is held at 1e-2
+    assert_bf16_moments(agree, score_atol=1e-2)

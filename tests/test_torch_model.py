@@ -167,5 +167,9 @@ def test_adapter_and_matching_match_cone_tpu(pair):
 
 
 def test_model_rejects_compute_dtype_it_does_not_run():
-    with pytest.raises(NotImplementedError):
-        ConeModel(dataclasses.replace(ModelConfig(), compute_dtype="bfloat16"), device="cpu")
+    """float32 and bfloat16 run (tests/test_torch_bf16.py); any other dtype
+    is refused when the config is made, before a model exists."""
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
+        ConeModel(dataclasses.replace(ModelConfig(), compute_dtype="float16"), device="cpu")
+    assert ConeModel(dataclasses.replace(ModelConfig(hidden_dim=16, dim_feedforward=32),
+                                         compute_dtype="bfloat16"), device="cpu")

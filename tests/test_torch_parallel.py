@@ -16,7 +16,8 @@ library, `train --distributed/--mesh`) on the CPU over gloo.
   * the criterion split into two shards in this process, through the
     loss's reduce hook over threads: equal to cone_tpu's criterion on the
     whole batch, value and gradient, with rows of unequal span counts;
-  * the two-rank `train --distributed` CLI;
+  * the two-rank `train --distributed` CLI, and at the bfloat16
+    ego4d_scratch preset against one process (3e-3: bfloat16 roundings);
   * the units: strided video shards, row blocks, a group of one rank.
 """
 
@@ -48,6 +49,7 @@ from cone_tpu_torch.train.checkpoint import checkpoint_path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
+BF16_DP_RTOL = 3e-3   # tests/test_torch_bf16.py's limit on criterion terms
 SPAN_ATOL, SCORE_ATOL = 1e-3, 2e-3   # tests/test_e2e_inference_parity.py:110-113
 GLOO_TIMEOUT_S = 120
 
@@ -426,6 +428,44 @@ def test_cli_trains_two_ranks(tmp_path):
     assert recs[0]["parallel"] == {"world_size": 2, "backend": "gloo"}
     assert [r["kind"] for r in recs].count("eval") == 2
     assert os.path.exists(checkpoint_path(wd, "latest"))
+
+
+def test_cli_two_ranks_equal_one_process_in_bfloat16(tmp_path):
+    """`train --preset ego4d_scratch` (bfloat16, 2 heads) narrowed, at the
+    preset's dropouts: two gloo ranks against one process of the same run.
+    The gradient sum runs in another order, and the weights' last float32
+    bits then flip bfloat16 roundings now and then (measured on the CPU:
+    losses 1.1e-05 relative in epoch 0, terms up to 1.1e-03 and weights
+    6.7e-04 in epoch 1): losses and terms within BF16_DP_RTOL of max(1,
+    |term|), weights within BF16_DP_RTOL of each tensor's largest entry
+    (at least 1)."""
+    sets = ["model.hidden_dim=32", "model.dim_feedforward=64", "model.t_feat_dim=16",
+            "model.v_motion_feat_dim=16", "model.v_appear_feat_dim=16", "train.n_epoch=2",
+            "train.eval_epoch_interval=2", "train.bsz=8", "data.dset_name=synthetic"]
+    base = ["train", "--preset", "ego4d_scratch", "--synthetic", "--debug", "--device", "cpu"]
+    sets = [x for kv in sets for x in ("--set", kv)]
+    wd, wd1 = str(tmp_path / "two"), str(tmp_path / "one")
+    port = _free_port()
+    _spawn_ranks(lambda i: ["-m", "cone_tpu_torch"] + base + [
+        "--workdir", wd, "--distributed", "--coordinator", f"127.0.0.1:{port}",
+        "--num_processes", "2", "--process_id", str(i)] + sets)
+    cli.main(base + ["--workdir", wd1] + sets)
+    runs = []
+    for w in (wd, wd1):
+        with open(os.path.join(w, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        assert json.load(open(os.path.join(w, "config.json")))["model"]["compute_dtype"] == (
+            "bfloat16")
+        runs.append([r for r in recs if r["kind"] == "train_epoch"])
+    assert len(runs[0]) == len(runs[1]) == 2
+    for a, b in zip(*runs):
+        for k in [k for k in b if k.startswith("loss")]:
+            assert abs(a[k] - b[k]) <= BF16_DP_RTOL * max(1.0, abs(b[k])), (k, a[k], b[k])
+    got = torch.load(checkpoint_path(wd, "latest"), weights_only=True)["model"]
+    want = torch.load(checkpoint_path(wd1, "latest"), weights_only=True)["model"]
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=0,
+                                   atol=BF16_DP_RTOL * max(1.0, float(w.abs().max())), err_msg=k)
 
 
 def test_cli_layout_flags_need_distributed(tmp_path):

@@ -494,8 +494,17 @@ def test_cli_train_then_infer(tmp_path):
              if r["kind"] == "train_epoch"]
             == [{k: v for k, v in r.items() if k.startswith("loss")} for r in runs[1]
                 if r["kind"] == "train_epoch"])
-    with pytest.raises(NotImplementedError, match="float32"):
-        t_main(["train", "--preset", "ego4d_scratch", "--workdir", wd, "--device", "cpu"])
+    # the bfloat16 from-scratch preset trains (tests/test_torch_bf16.py holds it
+    # against cone_tpu): 2 heads of 16, bfloat16 compute, the same narrow widths
+    scratch_wd = wd + "_scratch"
+    t_main(["train", "--preset", "ego4d_scratch", "--synthetic", "--debug", "--device", "cpu",
+            "--workdir", scratch_wd]
+           + [x for kv in sets if kv != "model.nheads=4" for x in ("--set", kv)])
+    scratch = ConeConfig.load(os.path.join(scratch_wd, "config.json"))
+    assert (scratch.model.compute_dtype, scratch.model.nheads) == ("bfloat16", 2)
+    assert all(np.isfinite(r["loss_overall"])
+               for r in load_jsonl(os.path.join(scratch_wd, "metrics.jsonl"))
+               if r["kind"] == "train_epoch")
 
     # the same synthetic data as .cfs stores, for infer
     cfg = ConeConfig.load(os.path.join(wd, "config.json"))
