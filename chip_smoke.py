@@ -88,7 +88,14 @@ Phases, each of which raises (exit code != 0) on failure:
      card vs CPU: losses, terms, grad norm, weight change; (d) mad and
      mad_scratch over a 2-hour synthetic movie (36 864 frames) through the
      coarse kernel at its MAD record shape: device time and queries/s;
- 13. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+ 13. Megatron tensor parallelism, ranks sharing the card over gloo (tp_phase):
+     (a) dp 1 x tp 2 at the Ego4D preset's full width through `train`, 2
+     epochs x 2 steps and one eval epoch through the coarse kernel, against
+     the parallel phase's single-process run; (b) dp 2 x tp 2 at
+     ego4d_scratch (bf16), 2 steps against one process; (c) the tp
+     all-reduces of a step, their bytes and ms; (d) the gathered checkpoint
+     evaluated in one process against the tp run's own evaluation;
+ 14. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -1050,6 +1057,38 @@ def _median_warm_ms(step_ms, per_epoch):
     return float(np.median(step_ms[per_epoch:]))
 
 
+def _gathered_eval_vs_single(a, single):
+    """A rank's gathered evaluation (dist_worker.run's summary) against the
+    single run's: the same rows per modality, spans within SPAN_ATOL and
+    scores within SCORE_ATOL, ranklists equal but for swaps of near-ties
+    in the single run's window scores. Returns (span err, score err,
+    swapped windows)."""
+    import numpy as np
+
+    n_q = len(single["ranklists"])
+    span_err = score_err = 0.0
+    flips = 0
+    for m, rows in single["rows"].items():
+        check(set(a["rows"][m]) == set(rows) and len(rows) == n_q,
+              f"{m}: {len(a['rows'][m])} gathered rows for {n_q} queries")
+        for q, want in rows.items():
+            got, want = np.asarray(a["rows"][m][q]), np.asarray(want)
+            check(got.shape == want.shape, f"{m} {q}: {got.shape} vs {want.shape}")
+            if got.size:
+                span_err = max(span_err, float(np.abs(got[:, :2] - want[:, :2]).max()))
+                score_err = max(score_err, float(np.abs(got[:, 2] - want[:, 2]).max()))
+    check(span_err <= SPAN_ATOL and score_err <= SCORE_ATOL,
+          f"gathered eval vs single: spans {span_err}, scores {score_err}")
+    for q, want in single["ranklists"].items():
+        got = a["ranklists"][q]
+        if got != want:   # only near-ties may swap: the single run's scores in this order
+            s = np.asarray(single["window_scores"][q])[got]
+            check(bool((s[:-1] >= s[1:] - REL_TOL * np.maximum(1.0, np.abs(s[1:]))).all()),
+                  f"{q}: gathered ranklist differs beyond near-ties")
+            flips += sum(x != y for x, y in zip(got, want))
+    return span_err, score_err, flips
+
+
 def parallel_phase(card):
     """Data parallelism on the card at the Ego4D preset's full width (hidden
     256, 8 heads, 2+2 layers, FFN 1024, 256-d features), bsz 32, 2 epochs x
@@ -1064,7 +1103,7 @@ def parallel_phase(card):
     its rows. A failed rank fails the phase. (c) the
     step's time with and without a one-rank NCCL group, 10 warm steps a
     variant taken in turns (cone_tpu_torch/tools/bench_dp_step.py). Returns
-    (measurements, coarse launches by run)."""
+    (measurements, coarse launches by run, the single-process summary)."""
     import socket
 
     import numpy as np
@@ -1179,26 +1218,7 @@ def parallel_phase(card):
 
     # the gathered evaluation against the single run's
     n_q = len(single["ranklists"])
-    span_err = score_err = 0.0
-    flips = 0
-    for m, rows in single["rows"].items():
-        check(set(a["rows"][m]) == set(rows) and len(rows) == n_q,
-              f"{m}: {len(a['rows'][m])} gathered rows for {n_q} queries")
-        for q, want in rows.items():
-            got, want = np.asarray(a["rows"][m][q]), np.asarray(want)
-            check(got.shape == want.shape, f"{m} {q}: {got.shape} vs {want.shape}")
-            if got.size:
-                span_err = max(span_err, float(np.abs(got[:, :2] - want[:, :2]).max()))
-                score_err = max(score_err, float(np.abs(got[:, 2] - want[:, 2]).max()))
-    check(span_err <= SPAN_ATOL and score_err <= SCORE_ATOL,
-          f"gathered eval vs single: spans {span_err}, scores {score_err}")
-    for q, want in single["ranklists"].items():
-        got = a["ranklists"][q]
-        if got != want:   # only near-ties may swap: the single run's scores in this order
-            s = np.asarray(single["window_scores"][q])[got]
-            check(bool((s[:-1] >= s[1:] - REL_TOL * np.maximum(1.0, np.abs(s[1:]))).all()),
-                  f"{q}: gathered ranklist differs beyond near-ties")
-            flips += sum(x != y for x, y in zip(got, want))
+    span_err, score_err, flips = _gathered_eval_vs_single(a, single)
     # the rank-sharded library against the whole library
     lib_span = lib_fused = 0.0
     for got, want in zip(a["corpus_hits"], single["corpus_hits"]):
@@ -1248,6 +1268,175 @@ def parallel_phase(card):
           f"world-1 NCCL gradient all-reduce only {med['group_grads']:.2f}, world-1 NCCL "
           f"{med['group']:.2f}; collectives {turns['collectives']}; {time.time() - t0:.1f} s; "
           f"phase {time.time() - t_phase:.1f} s", flush=True)
+    return meas, launches, single
+
+
+TP_BF16_RTOL = 3e-3   # the two-rank bfloat16 limit (tests/test_torch_parallel.py)
+
+
+def _spawn_workers(argv, world, timeout=600):
+    """`world` ranks of cone_tpu_torch/tools/dist_worker.py on 127.0.0.1
+    with `argv`; a failed rank fails the phase. Returns the wall seconds."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cone_tpu_torch.tools.dist_worker", "--coordinator",
+         f"127.0.0.1:{port}", "--num_processes", str(world), "--process_id", str(i),
+         "--timeout_s", "300"] + argv,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {i} of {world} exited {p.returncode}:\n{log[-4000:]}")
+    return time.time() - t0
+
+
+def tp_phase(card, single, device="cuda", width="ego4d"):
+    """Megatron tensor parallelism (train.tp_devices = 2), ranks sharing the
+    card over gloo (phase 13). (a) dp 1 x tp 2 at the Ego4D preset's full
+    width (hidden 256, 8 heads: 4 a rank, FFN 1024: 512 a rank), bsz 32,
+    the preset's dropouts, 2 epochs x 2 steps and one eval epoch through
+    the coarse kernel (flattened to both ranks), through `train`
+    (cone_tpu_torch/tools/dist_worker.py --tp 2), against `single`, the
+    parallel phase's dist_worker.run with no group: losses, grad norms and
+    weights within PAR_RTOL, one coarse launch per dispatch on each rank.
+    (b) dp 2 x tp 2 at ego4d_scratch (bfloat16, 2 heads: one a rank), 2
+    steps (dist_worker --steps) against the same steps in this process:
+    losses, terms, grad norm and weights within TP_BF16_RTOL of max(1, |x|).
+    (c) the tp all-reduces of (b)'s last step: calls, bytes and ms a rank
+    (each size timed alone over the tp group), and the ms a step beside the
+    single process's. (d) (a)'s checkpoint (full tensors, gathered) through
+    load_model + evaluate in this process against (a)'s own gathered
+    evaluation. `device` and `width` are there to rehearse the phase on the
+    CPU at the narrow width; main() runs it on the card. Returns
+    (measurements, coarse launches by run)."""
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import ego4d_scratch_config
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.tools import dist_worker
+    from cone_tpu_torch.train.checkpoint import load_model
+    from cone_tpu_torch.train.loop import evaluate
+
+    t_phase = time.time()
+    meas, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) dp 1 x tp 2 through train, against the single-process run
+        prefix = os.path.join(tmp, "a")
+        ranks_s = _spawn_workers(["--out", prefix, "--width", width, "--device", device,
+                                  "--tp", "2"], 2)
+        a, b = (json.load(open(f"{prefix}.{i}.json")) for i in range(2))
+        for r in (a, b):
+            check(r["backend"] == "gloo" and r["tp"] == 2 and r["world"] == 2,
+                  f"tp rank {r['rank']}: {r['backend']}, tp {r['tp']}, world {r['world']}")
+            if device == "cuda":
+                check(r["device"] == "cuda:0"
+                      and r["train_launches"] == r["eval_launches"] == r["dispatches"] > 0,
+                      f"tp rank {r['rank']} on {r['device']}: coarse launches train "
+                      f"{r['train_launches']} / eval {r['eval_launches']}, want "
+                      f"{r['dispatches']} (its dispatches)")
+            launches[f"tp_rank{r['rank']}"] = r["train_launches"] + r["eval_launches"]
+        check(all(a[k] == b[k] for k in ("losses", "grad_norms", "param_sum", "rows",
+                                         "ranklists")), "the two tp ranks disagree")
+        vs_single = {k: _rel(a[k], single[k]) for k in ("losses", "grad_norms", "param_sum")}
+        vs_single["terms"] = max(abs(ta[k] - ts[k]) / max(1.0, abs(ts[k]))
+                                 for ta, ts in zip(a["terms"], single["terms"]) for k in ts)
+        check(max(vs_single.values()) <= PAR_RTOL, f"dp 1 x tp 2 vs one process: {vs_single}")
+        n_q = len(single["ranklists"])
+        span_err, score_err, flips = _gathered_eval_vs_single(a, single)
+        print(f"tp (a): dp 1 x tp 2 on {a['device']} over gloo, {width} width, through train: "
+              f"vs one process losses {vs_single['losses']:.2e}, terms "
+              f"{vs_single['terms']:.2e}, grad norms {vs_single['grad_norms']:.2e}, weights "
+              f"{vs_single['param_sum']:.2e} (<= {PAR_RTOL}); eval on both ranks, {n_q} "
+              f"queries, spans {span_err:.2e}, scores {score_err:.2e}, {flips} near-tie "
+              f"ranklist flips; coarse launches "
+              f"{a['train_launches']} + {a['eval_launches']} / "
+              f"{b['train_launches']} + {b['eval_launches']} for "
+              f"{a['dispatches']} / {b['dispatches']} dispatches; ranks {ranks_s:.1f} s",
+              flush=True)
+
+        # (d) the gathered checkpoint in one process against the TP run's eval
+        cfg, ds = dist_worker.problem(width)
+        model, _ = load_model(prefix + ".workdir", "latest", device=device)
+        co.coarse_segment_max.launches = 0
+        res = evaluate(model, ds, cfg, host_postproc=False, fused=True, device=device)
+        launches["tp_checkpoint_eval"] = co.coarse_segment_max.launches
+        rows = {m: {r["query_id"]: r["predicted_times"] for r in rr}
+                for m, rr in res["submissions"].items()}
+        exact = rows == a["rows"] and res["ranklists"] == a["ranklists"]
+        ck = _gathered_eval_vs_single({"rows": rows, "ranklists": res["ranklists"]}, a)
+        if device == "cuda":
+            check(launches["tp_checkpoint_eval"] == a["dispatches"] + b["dispatches"],
+                  f"checkpoint eval: {launches['tp_checkpoint_eval']} coarse launches")
+        print(f"tp (d): the tp checkpoint (full tensors) through load_model + evaluate in one "
+              f"process vs the tp run's own eval: spans {ck[0]:.2e}, scores {ck[1]:.2e}, "
+              f"{ck[2]} near-tie ranklist flips, to the bit: {exact}; "
+              f"{launches['tp_checkpoint_eval']} coarse launches", flush=True)
+
+        # (b) dp 2 x tp 2 at ego4d_scratch, against the same steps here
+        scfg = ego4d_scratch_config()
+        scfg = scfg.replace(data=cfg.data, train=cfg.train, eval=cfg.eval)
+        if width != "ego4d":   # the CPU rehearsal: the narrow model in bfloat16, 2 heads
+            scfg = cfg.replace(model=dataclasses.replace(cfg.model, nheads=2,
+                                                         compute_dtype="bfloat16"))
+        path = os.path.join(tmp, "scratch.json")
+        scfg.replace(train=dataclasses.replace(scfg.train, tp_devices=2)).save(path)
+        prefix = os.path.join(tmp, "b")
+        ranks_s = _spawn_workers(["--out", prefix, "--width", width, "--device", device,
+                                  "--steps", "2", "--config", path], 4)
+        rb = [json.load(open(f"{prefix}.{i}.json")) for i in range(4)]
+        one = dist_worker.train_steps(width, device, 2, scfg, state_path=prefix + ".one.pt")
+        check(all(r["metrics"] == rb[0]["metrics"] and r["roundtrip_exact"] for r in rb),
+              "dp 2 x tp 2: the ranks disagree, or a gathered state does not shard back")
+        err = max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                  for g, w in zip(rb[0]["metrics"], one["metrics"]) for k in w
+                  if not k.startswith("class_error"))
+        got_w = torch.load(prefix + ".state.pt", weights_only=True)
+        w_err = max(float((got_w[k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                    for k, v in torch.load(prefix + ".one.pt", weights_only=True).items())
+        check(err <= TP_BF16_RTOL and w_err <= TP_BF16_RTOL,
+              f"dp 2 x tp 2 bf16 vs one process: metrics {err}, weights {w_err}")
+        cost = rb[0]["tp_allreduce"]
+        meas["dp1_tp2_train"] = dict(
+            note="two ranks sharing one card over gloo: a correctness run, not a speed figure",
+            vs_single_max_rel=vs_single, eval_span_err=span_err, eval_score_err=score_err,
+            ranklist_near_tie_flips=flips, ranks_wall_s=ranks_s,
+            step_ms_single=_median_warm_ms(single["step_ms"], 2),
+            step_ms_rank0=_median_warm_ms(a["step_ms"], 2),
+            step_ms_rank1=_median_warm_ms(b["step_ms"], 2),
+            dispatches={0: a["dispatches"], 1: b["dispatches"]},
+            checkpoint_eval=dict(span_err=ck[0], score_err=ck[1], near_tie_flips=ck[2],
+                                 to_the_bit=exact))
+        meas["dp2_tp2_scratch_steps"] = dict(
+            max_rel_err_metrics=err, max_rel_err_weights=w_err,
+            shard_shapes={k: v for k, v in rb[0]["shard_shapes"].items()
+                          if k.startswith("transformer.encoder.layers.0.")},
+            step_ms_single=one["step_ms"], step_ms_rank0=rb[0]["step_ms"],
+            tp_allreduce_last_step=cost, ranks_wall_s=ranks_s)
+        print(f"tp (b): dp 2 x tp 2 at ego4d_scratch (bf16, 1 head a rank), 2 steps vs one "
+              f"process: metrics {err:.2e}, weights {w_err:.2e} (<= {TP_BF16_RTOL}); shards "
+              f"{meas['dp2_tp2_scratch_steps']['shard_shapes']}", flush=True)
+        print(f"tp (c) [{card}]: the tp all-reduces of a step, rank 0 of dp 2 x tp 2 (16 rows "
+              f"a rank): {cost['calls']} calls, {cost['bytes']} bytes, {cost['ms']:.2f} ms when "
+              f"timed alone over gloo; ms a step (host clock) one process "
+              f"{[round(t, 2) for t in one['step_ms']]}, rank 0 "
+              f"{[round(t, 2) for t in rb[0]['step_ms']]}; dp 1 x tp 2 in train: warm step "
+              f"{meas['dp1_tp2_train']['step_ms_rank0']:.2f} / "
+              f"{meas['dp1_tp2_train']['step_ms_rank1']:.2f} ms against one process's "
+              f"{meas['dp1_tp2_train']['step_ms_single']:.2f} (a correctness run on one card, "
+              f"not a speed figure); phase {time.time() - t_phase:.1f} s", flush=True)
+    meas["phase_s"] = time.time() - t_phase
     return meas, launches
 
 
@@ -2798,7 +2987,7 @@ def main():
     tan["training"], tan_train_launches = tan_training_phase(smi)
 
     # 9. data parallelism
-    parallel, par_launches = parallel_phase(smi)
+    parallel, par_launches, single = parallel_phase(smi)
 
     # 10. the feature towers and the demo path
     towers, demo_launches, (b, l_pad, q, d, stride, ctx) = towers_phase(smi, peaks)
@@ -2813,6 +3002,9 @@ def main():
     # 12. bfloat16 compute: the ego4d_scratch and mad_scratch presets
     scratch, scratch_launches = scratch_phase(smi, ds, training["warm_step_ms_median"])
 
+    # 13. tensor parallelism
+    tp, tp_launches = tp_phase(smi, single)
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -2823,11 +3015,12 @@ def main():
         replaces="cone_tpu/ops/pallas_coarse.py:66",
         launches=(launches + train_launches + tan_launches + tan_train_launches
                   + sum(par_launches.values()) + demo_launches + sum(data_launches.values())
-                  + sum(scratch_launches.values())),
+                  + sum(scratch_launches.values()) + sum(tp_launches.values())),
         launches_by_path={"inference": launches, "train_eval": train_launches,
                           "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
                           **{f"parallel_{k}": v for k, v in par_launches.items()},
-                          "demo": demo_launches, **data_launches, **scratch_launches},
+                          "demo": demo_launches, **data_launches, **scratch_launches,
+                          **tp_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -2851,7 +3044,7 @@ def main():
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
                       "parallel": parallel, "towers": towers, "data": data,
-                      "scratch": scratch, "card": smi}))
+                      "scratch": scratch, "tp": tp, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

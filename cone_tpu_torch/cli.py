@@ -33,7 +33,11 @@ Ranks train on row blocks of each global batch with the global batch's
 loss and share the workdir; rank 0 writes it. Backends, from every rank's
 host name and card count after the rendezvous: NCCL when no host runs
 more ranks than it has cards, gloo on the CPU (--device cpu) and when
-ranks share a card. A 2D-TAN workdir infers and serves like a CONE one.
+ranks share a card. With `--set train.tp_devices=K` (`--distributed`, a
+multiple of K processes) the ranks form a (N / K, K) grid: Megatron tensor
+parallelism of the transformer over each K adjacent ranks, data
+parallelism across them (parallel/mesh.py); the checkpoints hold full
+tensors. A 2D-TAN workdir infers and serves like a CONE one.
 
 `demo` (a video file and query texts -> ranked moments), `extract-video`,
 `extract-text` and `serve --text_backend` run the feature towers on the
@@ -42,7 +46,9 @@ the port's own module (models/clip.py), the counterpart of cone_tpu's
 "flax"; "hf" is the transformers torch model, the counterpart of its
 "torch". Both load released weights through transformers by name.
 
-Not ported yet: of train, tensor parallelism (train.tp_devices > 1).
+`--debug_nans` (before the command) runs it under torch's anomaly mode
+with its NaN check: the first backward op that produces a NaN raises,
+naming its forward op (cone_tpu's --debug_nans).
 """
 
 from __future__ import annotations
@@ -112,10 +118,17 @@ def cmd_train(args):
     cfg = _load_cfg(args)
     if args.debug:
         cfg = _apply_overrides(cfg, ["train.debug=true"])
+    if cfg.train.tp_devices > 1 and not args.distributed and not args.dump_config:
+        raise SystemExit(
+            f"train.tp_devices={cfg.train.tp_devices} (tensor parallel) needs --distributed "
+            "with a multiple of that many processes" + (", not --mesh" if args.mesh else ""))
     if not args.dump_config:   # before any data is read or a rank joins
         from cone_tpu_torch.train.loop import check_supported
 
-        check_supported(cfg, args.num_processes or 1)
+        world = args.num_processes
+        if world is None and args.distributed:   # torchrun's environment
+            world = int(os.environ.get("WORLD_SIZE", 1))
+        check_supported(cfg, world or 1)
     if args.dump_config or not (args.distributed or args.mesh):
         return _train(args, cfg, args.device)
     if args.distributed:
@@ -588,6 +601,11 @@ def _add_device(p):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cone_tpu_torch")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="torch.autograd anomaly mode with its NaN check: fail at the backward"
+                        " op that first produces a NaN, naming its forward op (the 2D-TAN"
+                        " reference's set_detect_anomaly, cone_2dtan/moment_localization/"
+                        "train.py:28). Slow; debugging only")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train", help="train a CONE or 2D-TAN model")
@@ -793,6 +811,11 @@ def main(argv=None):
     c.set_defaults(fn=cmd_convert_store)
 
     args = p.parse_args(argv)
+    if args.debug_nans:
+        import torch
+
+        with torch.autograd.detect_anomaly(check_nan=True):
+            return args.fn(args)
     return args.fn(args)
 
 

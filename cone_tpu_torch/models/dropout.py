@@ -15,6 +15,15 @@ stream, and one process is the one-rank case. Outside that context (a
 forward in training mode outside the train step) a call draws the local
 rows from torch's global generator, as nn.Dropout does.
 
+Tensor parallel: inside a sharded attention block or FFN a rank holds
+only its heads (dim 1 of the attention weights) or its hidden units (dim 2
+of the FFN hidden), so the call names that slice (`shard`, given per call:
+one layer's dropout module also drops the full-width residuals). The mask
+is still drawn at the full width, and the rank keeps its rows and its
+slice of it: every rank consumes the same stream, and a (dp, tp) run draws
+the single process's masks, as cone_tpu's threefry masks are the same
+under any sharding.
+
 RowDropout has no parameters and no buffers, so it takes nn.Dropout's
 place without changing a state-dict name (`net.1` stays `net.1`).
 """
@@ -23,7 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,17 +66,25 @@ class RowDropout(nn.Module):
             raise ValueError(f"dropout probability {p} is not in [0, 1]")
         self.p = p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+        """shard: (dim, full size, this rank's first index) when x holds a
+        slice of dim `dim` (tensor parallel)."""
         if not self.training or self.p == 0.0:
             return x
         rows = _ROWS.get()
         gen, n_rows, lo = (None, x.shape[0], 0) if rows is None else rows
         if lo + x.shape[0] > n_rows:
             raise ValueError(f"rows {lo}:{lo + x.shape[0]} outside a global batch of {n_rows}")
+        shape = [n_rows] + list(x.shape[1:])
+        if shard is not None:
+            shape[shard[0]] = shard[1]
         # float32 uniforms whatever x's dtype (flax's bernoulli draws in
         # float32): a bfloat16 run keeps the float32 run's masks
-        u = torch.rand((n_rows,) + tuple(x.shape[1:]), generator=gen, device=x.device,
+        u = torch.rand(shape, generator=gen, device=x.device,
                        dtype=torch.float32)[lo : lo + x.shape[0]]
+        if shard is not None:
+            u = u.narrow(shard[0], shard[2], x.shape[shard[0]])
         scale = 0.0 if self.p == 1.0 else 1.0 / (1.0 - self.p)
         return x * (u >= self.p).to(x.dtype) * scale
 

@@ -19,6 +19,17 @@ dropout stay in it; every `LayerNorm` computes in float32 and returns
 float32, as flax's LayerNorm without a dtype does; residual adds promote
 as jnp's do (bfloat16 + float32 is float32). In float32 every cast is a
 no-op.
+
+Tensor parallel (parallel/mesh.shard_model sets `tp` on the modules whose
+matmuls it shards): an attention block computes its nhead/tp local heads
+(its rows of each q, k, v third of the in-projection) and an FFN its
+dim_feedforward/tp hidden units; each takes its input through Megatron's
+`f` and sums its row-parallel product over the tp group with `g`
+(parallel/distributed.TensorParallel), the bias added once after the sum
+(`row_parallel_dense`). The logit scale stays (D/nhead)^-0.5, and the
+dropout masks inside the block are the full-width ones of which the rank
+keeps its heads or hidden units (models/dropout.py), so a (dp, tp) run
+draws the single process's masks.
 """
 
 from __future__ import annotations
@@ -44,6 +55,19 @@ def dense(x, weight, bias, dtype):
     if dtype == torch.float32:
         return F.linear(x, weight, bias)
     return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
+
+
+def row_parallel_dense(x, weight, bias, dtype, tp):
+    """`dense` with x and the weight split along the inputs over the tp
+    group: the partial products summed by `tp.reduce_out`, then the bias.
+    In bfloat16 the partials are products of bfloat16 operands summed in
+    float32 and rounded once after the sum, as one device's bfloat16 GEMM
+    accumulates in float32 and rounds once (rounding each shard's partial
+    first, as GSPMD would, adds tp roundings that one device never makes)."""
+    if dtype == torch.float32:
+        return tp.reduce_out(F.linear(x, weight)) + bias
+    partial = F.linear(x.to(dtype).float(), weight.to(dtype).float())
+    return tp.reduce_out(partial).to(dtype) + bias.to(dtype)
 
 
 class Dense(nn.Linear):
@@ -96,6 +120,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
         self.out_proj = Dense(d_model, d_model, compute_dtype, device=device)
         self.dropout = RowDropout(dropout)
+        self.tp = None   # parallel/mesh.shard_model: this rank's heads only
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query, key, value,
@@ -103,7 +128,13 @@ class MultiheadAttention(nn.Module):
         """query (B, Lq, D), key/value (B, Lk, D), key_padding_mask (B, Lk)
         True = ignore. Self-attention (query is key) projects q and k in
         one matmul."""
-        d, h, dt = self.d_model, self.nhead, self.compute_dtype
+        h, dt, tp = self.nhead, self.compute_dtype, self.tp
+        if tp is not None:
+            self_attn = query is key
+            query, value = tp.copy_in(query), tp.copy_in(value)
+            key = query if self_attn else tp.copy_in(key)
+            h //= tp.size
+        d = self.in_proj_weight.shape[0] // 3   # this rank's width
         w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         if query is key:
             q, k = dense(query, w[: 2 * d], bias[: 2 * d], dt).split(d, dim=-1)
@@ -120,12 +151,38 @@ class MultiheadAttention(nn.Module):
         logits = (q * self.scale) @ k.transpose(-1, -2)
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
-        weights = self.dropout(softmax(logits))
+        heads = None if tp is None else (1, self.nhead, tp.rank * h)
+        weights = self.dropout(softmax(logits), heads)
         out = (weights @ v).transpose(1, 2)
-        return self.out_proj(out.reshape(out.shape[0], out.shape[1], d))
+        out = out.reshape(out.shape[0], out.shape[1], d)
+        if tp is None:
+            return self.out_proj(out)
+        return row_parallel_dense(out, self.out_proj.weight, self.out_proj.bias, dt, tp)
 
 
-class EncoderLayer(nn.Module):
+class _FFNLayer(nn.Module):
+    """The feed-forward block shared by both layer types: linear1, ReLU,
+    dropout, linear2; under tensor parallelism (`tp`) on this rank's
+    dim_feedforward/tp hidden units."""
+
+    def _init_ffn(self, d_model, dim_feedforward, dropout, compute_dtype, device):
+        self.dim_feedforward = dim_feedforward
+        self.linear1 = Dense(d_model, dim_feedforward, compute_dtype, device)
+        self.linear2 = Dense(dim_feedforward, d_model, compute_dtype, device)
+        self.dropout = RowDropout(dropout)
+        self.tp = None   # parallel/mesh.shard_model: this rank's hidden units only
+
+    def _ffn(self, x):
+        tp = self.tp
+        if tp is None:
+            return self.linear2(self.dropout(F.relu(self.linear1(x))))
+        hidden = F.relu(self.linear1(tp.copy_in(x)))
+        hidden = self.dropout(hidden, (2, self.dim_feedforward, tp.rank * hidden.shape[2]))
+        return row_parallel_dense(hidden, self.linear2.weight, self.linear2.bias,
+                                  self.linear2.compute_dtype, tp)
+
+
+class EncoderLayer(_FFNLayer):
     """cone/transformer.py:211-268."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout, pre_norm=False,
@@ -133,14 +190,9 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.pre_norm = pre_norm
         self.self_attn = MultiheadAttention(d_model, nhead, dropout, compute_dtype, device)
-        self.linear1 = Dense(d_model, dim_feedforward, compute_dtype, device)
-        self.linear2 = Dense(dim_feedforward, d_model, compute_dtype, device)
+        self._init_ffn(d_model, dim_feedforward, dropout, compute_dtype, device)
         self.norm1 = LayerNorm(d_model, device)
         self.norm2 = LayerNorm(d_model, device)
-        self.dropout = RowDropout(dropout)
-
-    def _ffn(self, x):
-        return self.linear2(self.dropout(F.relu(self.linear1(x))))
 
     def forward(self, src, key_padding_mask, pos):
         if self.pre_norm:
@@ -153,7 +205,7 @@ class EncoderLayer(nn.Module):
         return self.norm2(src + self.dropout(self._ffn(src)))
 
 
-class DecoderLayer(nn.Module):
+class DecoderLayer(_FFNLayer):
     """cone/transformer.py:271-353."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout, pre_norm=False,
@@ -163,15 +215,10 @@ class DecoderLayer(nn.Module):
         self.self_attn = MultiheadAttention(d_model, nhead, dropout, compute_dtype, device)
         self.multihead_attn = MultiheadAttention(d_model, nhead, dropout, compute_dtype,
                                                  device)
-        self.linear1 = Dense(d_model, dim_feedforward, compute_dtype, device)
-        self.linear2 = Dense(dim_feedforward, d_model, compute_dtype, device)
+        self._init_ffn(d_model, dim_feedforward, dropout, compute_dtype, device)
         self.norm1 = LayerNorm(d_model, device)
         self.norm2 = LayerNorm(d_model, device)
         self.norm3 = LayerNorm(d_model, device)
-        self.dropout = RowDropout(dropout)
-
-    def _ffn(self, x):
-        return self.linear2(self.dropout(F.relu(self.linear1(x))))
 
     def forward(self, tgt, memory, memory_key_padding_mask, pos, query_pos):
         drop = self.dropout

@@ -21,12 +21,23 @@ refuses two ranks on one device).
 Metadata (result rows, control scalars) travels over a gloo group on the
 CPU, never over the NCCL communicator the gradients use.
 
+Tensor parallelism (train.tp_devices > 1, parallel/mesh.py): `grid` makes
+every dp group and every tp group of the (dp, tp) grid of ranks and returns
+this rank's `GroupReduce` over its dp group (the global-batch loss and the
+gradient sum run over dp: the tp ranks of one dp slot hold the same rows)
+and its `TensorParallel` over its tp group, whose two autograd functions are
+Megatron's `f` (identity forward, all-reduce backward: `copy_in`) and `g`
+(all-reduce forward, identity backward: `reduce_out`). `clip_grad_norm_`
+counts a sharded parameter's square over the tp group and a replicated
+one once, so the clip sees the single process's norm.
+
 Every function here is a passthrough when no group is initialized; with a
 group of one rank the collectives still run (each is then an exact copy).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import socket
 from collections import Counter
@@ -37,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cone_tpu_torch.parallel.mesh import grid_coords, tp_size
 from cone_tpu_torch.utils.device import resolve_device
 
 # one limit for the rendezvous and for every collective: a rank that fails
@@ -236,7 +248,8 @@ class GroupReduce:
     def sum_grads(self, params) -> None:
         """Sum the gradients of `params` over ranks in one coalesced
         all-reduce; parameters without a gradient (the same on every rank)
-        are left alone, as torch's AdamW leaves them."""
+        are left out of it (the train step gives them a zero gradient after
+        the clip)."""
         grads = [p.grad for p in params if p.grad is not None]
         if self._all_reduce is None or not grads:
             return
@@ -255,3 +268,101 @@ def batch_reduce() -> GroupReduce:
     if not dist.is_initialized():
         return LOCAL
     return GroupReduce(rank(), world_size(), dist.all_reduce)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: the identity forward, the gradient summed over the tp
+    group backward (each rank's heads or FFN block add their share)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.sum(grad.contiguous()), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g: the partial products summed over the tp group forward,
+    the identity backward (every rank holds the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class TensorParallel:
+    """One rank's place on the tp axis: `rank` of `size`, with `all_reduce(t)`
+    (in place) and `all_gather(t)` (-> the size ranks' tensors in tp order)
+    over its tp group. `sizes` counts the all-reduces by (elements, bytes
+    per element) until cleared (tools/dist_worker.py reads it a step)."""
+
+    def __init__(self, rank: int, size: int, all_reduce: Callable[[torch.Tensor], None],
+                 all_gather: Callable[[torch.Tensor], List[torch.Tensor]]):
+        self.rank, self.size = rank, size
+        self._all_reduce, self.all_gather = all_reduce, all_gather
+        self.sizes = Counter()
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the tp group (a new tensor)."""
+        out = t.detach().clone()
+        self._all_reduce(out)
+        self.sizes[(out.numel(), out.element_size())] += 1
+        return out
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(x, self)
+
+
+def _all_gather(t: torch.Tensor, group, size: int) -> List[torch.Tensor]:
+    out = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+def grid(tp_devices: int) -> Tuple[GroupReduce, Optional[TensorParallel]]:
+    """(the reductions over this rank's dp group, its TensorParallel or None)
+    on the (world // tp, tp) grid of the initialized group (parallel/mesh.py
+    `grid_coords`). tp 1: `batch_reduce()` and None. Every rank creates
+    every dp and tp group, in the same order, as new_group requires."""
+    world = world_size()
+    tp = tp_size(tp_devices, world)
+    if tp == 1:
+        return batch_reduce(), None
+    dp = world // tp
+    tp_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp))) for d in range(dp)]
+    dp_groups = [dist.new_group(list(range(t, world, tp))) for t in range(tp)]
+    dp_rank, tp_rank = grid_coords(rank(), tp)
+    dp_group, tp_group = dp_groups[tp_rank], tp_groups[dp_rank]
+    reduce = GroupReduce(dp_rank, dp, functools.partial(dist.all_reduce, group=dp_group))
+    tensor = TensorParallel(tp_rank, tp, functools.partial(dist.all_reduce, group=tp_group),
+                            functools.partial(_all_gather, group=tp_group, size=tp))
+    return reduce, tensor
+
+
+def clip_grad_norm_(params, max_norm: float, tp: Optional[TensorParallel] = None):
+    """torch.nn.utils.clip_grad_norm_ over the model a tp group holds: the
+    global norm of the gradients before the clip, with each sharded
+    parameter's (flag `tp_sharded`, parallel/mesh.shard_model) square summed
+    over the tp group and each replicated one counted once; the gradients
+    scaled by min(1, max_norm / (norm + 1e-6)) as torch scales them."""
+    if tp is None:
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    sharded = torch.tensor([getattr(p, "tp_sharded", False) for p in params],
+                           device=sq.device)
+    total = (tp.sum(sq[sharded].sum()) + sq[~sharded].sum()).sqrt()
+    coef = (max_norm / (total + 1e-6)).clamp(max=1.0)
+    torch._foreach_mul_(grads, coef)
+    return total

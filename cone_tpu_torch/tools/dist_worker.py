@@ -19,6 +19,21 @@ run when called in-process). Every rank:
      rank's strided share of the videos, fresh seeded weights);
   4. at the narrow width, one 2D-TAN train step on its row block.
 
+With --tp K (train.tp_devices, a world of a multiple of K ranks) the ranks
+train on the (world / K, K) grid of tensor parallelism and steps 3-4 are
+left out (the library and 2D-TAN have nothing to shard).
+
+    python -m cone_tpu_torch.tools.dist_worker --out PREFIX --steps N \
+        [--config CFG.json] [--init W.pt] ...
+
+runs N train steps (train/step.make_train_step on the batches of epochs
+0, 1, ..., adapter on) on this rank's cell of the grid of the config's
+train.tp_devices instead (`train_steps`): per-step metrics, the final
+weights gathered to full tensors (rank 0 writes PREFIX.state.pt), the
+shard shapes of the weights and of AdamW's moments, whether the gathered
+state shards back to this rank's bit for bit, and the tp all-reduces of a
+step with their bytes and ms.
+
 Widths: "narrow" is tests/dist_worker_cfg.py's problem (hidden 64, 4 videos
 x 4 queries, bsz 8); "ego4d" is the Ego4D preset's full width (hidden 256,
 8 heads, 2+2 layers, FFN 1024, 256-d features) at bsz 32 over 8 videos x 8
@@ -30,7 +45,9 @@ its rows (models/dropout.py), so the ranks take the single run's steps.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import itertools
 import json
 import time
 
@@ -47,11 +64,12 @@ from cone_tpu_torch.parallel import distributed
 N_CORPUS_QUERIES = 6
 
 
-def problem(width: str):
-    """(cfg, dataset) of a width; the same on every rank."""
+def problem(width: str, cfg: ConeConfig = None):
+    """(cfg, dataset) of a width, the dataset made for `cfg` when given (a
+    config of the same feature widths); the same on every rank."""
     if width == "narrow":
         dim = 32
-        cfg = ConeConfig(
+        cfg = cfg or ConeConfig(
             model=ModelConfig(hidden_dim=64, nheads=4, dim_feedforward=128, t_feat_dim=dim,
                               v_motion_feat_dim=dim, v_appear_feat_dim=dim, max_q_l=8,
                               max_v_l=32),
@@ -64,12 +82,13 @@ def problem(width: str):
                                            ctx_l_range=(100, 200), dim=dim, signal=3.0,
                                            seed=7)
     assert width == "ego4d", width
-    cfg = ego4d_config()
-    cfg = cfg.replace(
-        data=dataclasses.replace(cfg.data, dset_name="synthetic"),
-        train=dataclasses.replace(cfg.train, bsz=32, n_epoch=2, eval_epoch_interval=2,
-                                  start_epoch_for_adapter=1),
-        eval=dataclasses.replace(cfg.eval, use_pallas_coarse=True))
+    if cfg is None:
+        cfg = ego4d_config()
+        cfg = cfg.replace(
+            data=dataclasses.replace(cfg.data, dset_name="synthetic"),
+            train=dataclasses.replace(cfg.train, bsz=32, n_epoch=2, eval_epoch_interval=2,
+                                      start_epoch_for_adapter=1),
+            eval=dataclasses.replace(cfg.eval, use_pallas_coarse=True))
     return cfg, make_synthetic_dataset(cfg.data, n_videos=8, queries_per_video=8,
                                        ctx_l_range=(1500, 2305),
                                        dim=cfg.model.v_appear_feat_dim, signal=3.0, seed=1)
@@ -156,7 +175,7 @@ def dispatches(cfg, ds) -> int:
     return sum(-(-sum(e.clip_id == v for e in ds.examples) // qc) for v in mine)
 
 
-def allreduce_ms(numel: int, device, iters: int = 20) -> float:
+def allreduce_ms(numel: int, device, iters: int = 20, all_reduce=dist.all_reduce) -> float:
     """Host ms of one all-reduce of `numel` float32 (the step's coalesced
     gradient buffer), synchronised."""
     buf = torch.ones(numel, device=device)
@@ -165,23 +184,104 @@ def allreduce_ms(numel: int, device, iters: int = 20) -> float:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-        dist.all_reduce(buf)
+        all_reduce(buf)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def run(width: str, device, workdir: str) -> dict:
+def tp_allreduce_cost(tensor, device) -> dict:
+    """The tp all-reduces counted in `tensor.sizes` (one step's): calls,
+    bytes, and the ms they take, each size timed alone over the tp group."""
+    ms = sum(n * allreduce_ms(numel * size // 4, device, iters=5,
+                              all_reduce=tensor._all_reduce)
+             for (numel, size), n in sorted(tensor.sizes.items()))
+    return {"calls": sum(tensor.sizes.values()),
+            "bytes": sum(numel * size * n for (numel, size), n in tensor.sizes.items()),
+            "ms": ms}
+
+
+def train_steps(width: str, device, n_steps: int, cfg: ConeConfig = None,
+                init: str = None, state_path: str = None) -> dict:
+    """The --steps run of the module docstring on `device` under the
+    initialized group, or alone with none; returns this rank's summary."""
+    from cone_tpu_torch.parallel import mesh
+    from cone_tpu_torch.parallel.mesh import row_block
+    from cone_tpu_torch.train.checkpoint import load_params
+    from cone_tpu_torch.train.loop import build_family
+    from cone_tpu_torch.train.optim import make_optimizer
+    from cone_tpu_torch.train.step import make_train_step, to_floats
+
+    device = torch.device(device)
+    cfg, ds = problem(width, cfg)
+    reduce, tensor = distributed.grid(cfg.train.tp_devices)
+    model = build_family(cfg, seed=cfg.train.seed, device=device)
+    if init:
+        load_params(init, model)
+    local, layout = model, {}
+    if tensor is not None:
+        local = copy.deepcopy(model)
+        layout = mesh.shard_model(local, tensor)
+    loader = TrainLoader(ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
+    opt, sched = make_optimizer(local, cfg.train, loader.steps_per_epoch())
+    step = make_train_step(local, opt, sched, cfg, reduce, tensor)
+    lo, hi = row_block(cfg.train.bsz, reduce.rank, reduce.world)
+    out = {"rank": distributed.rank(), "world": distributed.world_size(),
+           "backend": distributed.backend(), "device": str(device),
+           "tp": tensor.size if tensor else 1, "dp": reduce.world, "metrics": [],
+           "step_ms": []}
+    batches = itertools.chain.from_iterable(loader.epoch(e, lo, hi) for e in itertools.count())
+    for batch in itertools.islice(batches, n_steps):
+        if tensor is not None:
+            tensor.sizes.clear()
+        t0 = time.perf_counter()
+        out["metrics"].append(to_floats(step(batch, True)))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    state = local.state_dict()
+    if tensor is not None:
+        out["tp_allreduce"] = tp_allreduce_cost(tensor, device)   # the last step's
+        names = mesh.optimizer_param_names(opt, local)
+        osd = opt.state_dict()
+        full_osd = mesh.gather_optimizer_state(osd, names, layout, tensor)
+        state = mesh.gather_state_dict(local.state_dict(), layout, tensor)
+        back = mesh.shard_state_dict(state, layout, tensor.rank, tensor.size)
+        back_osd = mesh.shard_optimizer_state(full_osd, names, layout, tensor.rank,
+                                              tensor.size)
+        out["roundtrip_exact"] = (
+            all(torch.equal(back[k], v) for k, v in local.state_dict().items())
+            and all(torch.equal(back_osd["state"][i][k], v) for i, s in osd["state"].items()
+                    for k, v in s.items()))
+        out["shard_shapes"] = {k: list(v.shape) for k, v in local.state_dict().items()
+                               if k in layout}
+        out["moment_shapes"] = {names[i]: [list(s["exp_avg"].shape),
+                                           list(s["exp_avg_sq"].shape)]
+                                for i, s in osd["state"].items() if names[i] in layout}
+        out["full_moment_shapes"] = {names[i]: list(s["exp_avg"].shape)
+                                     for i, s in full_osd["state"].items()
+                                     if names[i] in layout}
+        # tp ranks of one slot hold the same replicated weights
+        rep = float(sum(v.double().abs().sum() for k, v in local.state_dict().items()
+                        if k not in layout))
+        distributed.assert_same_across_processes(rep, "replicated weights")
+    out["param_sum"] = float(sum(v.double().abs().sum() for v in state.values()))
+    if state_path and distributed.is_main():
+        torch.save({k: v.detach().cpu() for k, v in state.items()}, state_path)
+    return out
+
+
+def run(width: str, device, workdir: str, tp: int = 1) -> dict:
     """Steps 1-4 of the module docstring on `device` under the initialized
-    group, or alone with none; returns this rank's summary."""
+    group, or alone with none, on the grid of `tp`; returns this rank's
+    summary."""
     from cone_tpu_torch.ops import coarse as co
     from cone_tpu_torch.serve.corpus import CorpusRetriever
     from cone_tpu_torch.train.loop import build_family, evaluate, train
 
     device = torch.device(device)
     cfg, ds = problem(width)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, tp_devices=tp))
     out = {"rank": distributed.rank(), "world": distributed.world_size(),
-           "backend": distributed.backend(), "device": str(device),
+           "backend": distributed.backend(), "device": str(device), "tp": tp,
            "dispatches": dispatches(cfg, ds)}
 
     co.coarse_segment_max.launches = 0
@@ -195,8 +295,11 @@ def run(width: str, device, workdir: str) -> dict:
     out["grad_norms"] = [h["grad_norm"] for h in history]
     out["step_ms"] = [t * 1e3 for h in history for t in h["step_times"]]
     out["param_sum"] = param_sum(model)
-    if distributed.backend():
-        numel = sum(p.numel() for p in model.parameters() if p.grad is not None)
+    if distributed.backend() and tp == 1:
+        # the gradients the last step all-reduced: a parameter with none (the
+        # unused text position table) takes a zero one after the all-reduce
+        numel = sum(p.numel() for p in model.parameters()
+                    if p.grad is not None and bool(p.grad.any()))
         out["allreduce_bytes"] = 4 * numel
         out["allreduce_ms"] = allreduce_ms(numel, device)
 
@@ -208,6 +311,8 @@ def run(width: str, device, workdir: str) -> dict:
                    for m, rows in res["submissions"].items()}
     out["ranklists"] = res["ranklists"]
     out["window_scores"] = window_scores(model, cfg, ds, device)
+    if tp > 1:
+        return out
 
     # the library: fresh seeded weights, so a whole-library run needs no training
     cmodel = build_family(cfg, seed=cfg.train.seed, device=device)
@@ -232,6 +337,11 @@ def main(argv=None):
     ap.add_argument("--num_processes", type=int)
     ap.add_argument("--process_id", type=int)
     ap.add_argument("--timeout_s", type=float, default=distributed.TIMEOUT_S)
+    ap.add_argument("--tp", type=int, default=1, help="train.tp_devices of the run")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="run this many train steps only (train_steps)")
+    ap.add_argument("--config", help="--steps: a ConeConfig json in place of the width's")
+    ap.add_argument("--init", help="--steps: initial weights (a reference-named torch file)")
     args = ap.parse_args(argv)
     if args.device == "cpu":
         torch.set_num_threads(1)   # ranks share the host's cores
@@ -240,7 +350,12 @@ def main(argv=None):
         dev = distributed.initialize(args.coordinator, args.num_processes, args.process_id,
                                      device=args.device, timeout_s=args.timeout_s)
     try:
-        out = run(args.width, dev, args.out + ".workdir")   # shared by the ranks
+        if args.steps:
+            cfg = ConeConfig.load(args.config) if args.config else None
+            out = train_steps(args.width, dev, args.steps, cfg, args.init,
+                              args.out + ".state.pt")
+        else:
+            out = run(args.width, dev, args.out + ".workdir", args.tp)   # shared workdir
     finally:
         distributed.shutdown()
     with open(f"{args.out}.{out['rank']}.json", "w") as f:

@@ -29,7 +29,9 @@ no "lr_scheduler").
 
 Data parallel: the workdir is shared by every rank; rank 0 writes (the
 config and each checkpoint), the others wait at a barrier after the rename,
-and every rank restores.
+and every rank restores. Tensor parallel: the files hold the full tensors,
+gathered from the tp shards before the save (train/loop.py), so they read
+as a one-process run's at any tp.
 """
 
 from __future__ import annotations
@@ -125,14 +127,17 @@ class CheckpointManager:
     def save(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None,
              epoch: int = 0, extra: Optional[Dict[str, float]] = None) -> str:
         """Write model_<tag>.ckpt atomically (a temporary file, then
-        os.replace) on rank 0; every rank returns once it is in place."""
+        os.replace) on rank 0; every rank returns once it is in place.
+        `optimizer` is an optimizer or its state dict (a tensor-parallel
+        run passes the gathered one)."""
         path = checkpoint_path(self.workdir, tag)
         if distributed.is_main():
             state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
                      "epoch": int(epoch),
                      "extra": {k: float(v) for k, v in (extra or {}).items()}}
             if optimizer is not None:
-                state["optimizer"] = optimizer.state_dict()
+                state["optimizer"] = (optimizer if isinstance(optimizer, dict)
+                                      else optimizer.state_dict())
             if scheduler is not None:
                 state["lr_scheduler"] = scheduler.state_dict()
             torch.save(state, path + ".tmp")

@@ -20,14 +20,27 @@ criterion, the gradient clip and AdamW stay float32, with no loss scaling,
 as in cone_tpu. `train.multiscale` takes the ECCV'22 multiscale loader
 (data/multiscale.py: 3 extra variable-length windows per example, batches
 of 4B motion rows), CONE-only and on one rank, as cone_tpu asserts
-single-host; the eval-loss pass keeps the standard loader. Not ported yet,
-and raising where it would be asked for: tensor parallel training (ROADMAP
-Queue 1 item 11). `train.rng_impl` chooses a JAX PRNG and has no counterpart
-here: dropout masks are drawn for the global batch from a generator the
-train step seeds per step from (train.seed, global step), and each rank
-keeps its rows (models/dropout.py), as cone_tpu draws every row's mask
-from one global key; so a data-parallel run equals a single-process one
-with dropout on.
+single-host; the eval-loss pass keeps the standard loader.
+
+Tensor parallel (`train.tp_devices` = tp > 1, over a group of a multiple of
+tp ranks): the ranks form a (world / tp, tp) grid (parallel/mesh.py); each
+trains on its dp slot's row block with the transformer cut to its tp
+shards (`mesh.shard_model`) and the optimizer's moments of the shard's
+shape, the loss and gradient sums over its dp group. Evaluation flattens
+to data parallelism over every rank, as cone_tpu's does: the full weights
+are gathered into an unsharded copy of the model, which runs the
+video-sharded `evaluate` and the eval-loss pass over the whole group.
+Checkpoints hold the gathered weights and optimizer state, so a TP
+workdir infers, serves and resumes at any tp; a resume loads full tensors
+and shards them. 2D-TAN has no tensor a rule shards: under tp > 1 it runs
+as cone_tpu runs it, replicated, the batch over dp.
+
+`train.rng_impl` chooses a JAX PRNG and has no counterpart here: dropout
+masks are drawn for the global batch from a generator the train step seeds
+per step from (train.seed, global step), and each rank keeps its rows (and
+under tensor parallelism its heads or hidden units: models/dropout.py), as
+cone_tpu draws every row's mask from one global key; so a data-parallel or
+tensor-parallel run equals a single-process one with dropout on.
 """
 
 from __future__ import annotations
@@ -59,7 +72,16 @@ from cone_tpu_torch.eval.pipeline import make_pipeline
 from cone_tpu_torch.models.cone import ConeModel
 from cone_tpu_torch.models.tan import ConeTanModel
 from cone_tpu_torch.parallel import distributed
-from cone_tpu_torch.parallel.mesh import row_block, tp_size
+from cone_tpu_torch.parallel.mesh import (
+    gather_optimizer_state,
+    gather_state_dict,
+    optimizer_param_names,
+    row_block,
+    shard_model,
+    shard_optimizer_state,
+    shard_state_dict,
+    tp_size,
+)
 from cone_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from cone_tpu_torch.train.optim import make_optimizer, make_tan_optimizer
 from cone_tpu_torch.train.step import (
@@ -233,11 +255,16 @@ def check_supported(cfg: ConeConfig, world: int = 1) -> None:
         check_tan_geometry(cfg.tan, cfg.data.max_v_l)
     if cfg.train.multiscale and cfg.model.model_family == "tan":
         raise ValueError("train.multiscale is CONE-only")
+    if cfg.train.multiscale and cfg.train.tp_devices > 1:
+        raise ValueError(
+            f"train.multiscale runs on one rank, not with train.tp_devices="
+            f"{cfg.train.tp_devices}: its [standard; extra] batch layout cannot be "
+            "row-sliced across ranks")
     if cfg.train.multiscale and world > 1:
         raise ValueError(
             f"train.multiscale runs on one rank, not {world}: its [standard; extra] batch "
             "layout cannot be row-sliced across ranks")
-    tp_size(cfg.train.tp_devices)
+    tp_size(cfg.train.tp_devices, world)
 
 
 def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[GroundingDataset],
@@ -263,15 +290,18 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     rank, world = distributed.rank(), distributed.world_size()
     check_supported(cfg, world)
     dev = resolve_device(device)
-    lo, hi = row_block(cfg.train.bsz, rank, world)
-    reduce = distributed.batch_reduce()
+    # tp 1: the data-parallel group; tp > 1: the dp group of this rank's slot
+    reduce, tensor = distributed.grid(cfg.train.tp_devices)
+    lo, hi = row_block(cfg.train.bsz, reduce.rank, reduce.world)
     os.makedirs(workdir, exist_ok=True)
     ckpt = CheckpointManager(workdir, cfg)
     logger = MetricLogger(workdir, tensorboard=tensorboard)
     if distributed.is_main():
         _snapshot_code_version(workdir)
-    logger.log_hparams(json.loads(cfg.to_json()),
-                       parallel={"world_size": world, "backend": distributed.backend()})
+    parallel = {"world_size": world, "backend": distributed.backend()}
+    if tensor is not None:
+        parallel["tp"] = tensor.size
+    logger.log_hparams(json.loads(cfg.to_json()), parallel=parallel)
 
     model = build_family(cfg, seed=cfg.train.seed, device=dev)
     if init_ckpt and not ckpt.exists("latest"):
@@ -280,7 +310,16 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {cfg.model.model_family}, {n_params:,} parameters on {dev}"
           + (f", rank {rank} of {world} ({distributed.backend()})"
-             if distributed.backend() else ""))
+             if distributed.backend() else "")
+          + (f", tp {tensor.rank} of {tensor.size}" if tensor is not None else ""))
+    # tensor parallel: `model` keeps the full weights (evaluation and
+    # checkpoints), `local` trains on this rank's shards
+    local, layout = model, {}
+    if tensor is not None:
+        local = copy.deepcopy(model)
+        layout = shard_model(local, tensor)
+        if not layout:   # nothing to shard (2D-TAN): the replicas train the full model
+            local, tensor = model, None
     loader = (MultiscaleTrainLoader if cfg.train.multiscale else TrainLoader)(
         train_ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
     if loader.steps_per_epoch() == 0:
@@ -290,18 +329,20 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     if tan:
         # Adam + ReduceLROnPlateau on the stop score
         # (cone_2dtan/moment_localization/train.py:143-147)
-        optimizer, plateau = make_tan_optimizer(model, cfg.train)
+        optimizer, plateau = make_tan_optimizer(local, cfg.train)
         scheduler = None   # the plateau's state travels in `extra`, as cone_tpu's does
-        step_fn = make_tan_train_step(model, optimizer, cfg.tan, cfg.loss.neg_loss,
+        step_fn = make_tan_train_step(local, optimizer, cfg.tan, cfg.loss.neg_loss,
                                       cfg.loss.adapter_loss_coef, reduce)
     else:
-        optimizer, scheduler = make_optimizer(model, cfg.train, loader.steps_per_epoch())
-        step_fn = make_train_step(model, optimizer, scheduler, cfg, reduce)
+        optimizer, scheduler = make_optimizer(local, cfg.train, loader.steps_per_epoch())
+        step_fn = make_train_step(local, optimizer, scheduler, cfg, reduce, tensor)
+    # evaluation runs data parallel over every rank (flattened, as cone_tpu's)
+    eval_reduce = distributed.batch_reduce()
     eval_loss_fn = None
     if eval_ds is not None and cfg.eval.criterion_losses:
         eval_loss_fn = (make_tan_eval_loss_step(model, cfg.tan, cfg.loss.neg_loss,
-                                                cfg.loss.adapter_loss_coef, reduce)
-                        if tan else make_eval_loss_step(model, cfg, reduce))
+                                                cfg.loss.adapter_loss_coef, eval_reduce)
+                        if tan else make_eval_loss_step(model, cfg, eval_reduce))
         n_eval = _eval_loss_bsz(cfg, eval_ds)
         if n_eval % world:   # refused before any work, not at the first eval epoch
             raise ValueError(f"the eval-loss batch, min(train.bsz, eval examples) = {n_eval}, "
@@ -312,7 +353,17 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
         float(ckpt.exists("latest")),
         "resume state (a data-parallel run needs a workdir every rank shares)")
     if ckpt.exists("latest"):
-        epoch, extra = ckpt.restore("latest", model, optimizer, scheduler)
+        if tensor is None:
+            epoch, extra = ckpt.restore("latest", model, optimizer, scheduler)
+        else:   # full tensors into the full model and an optimizer over it, then shard
+            full_opt, _ = make_optimizer(model, cfg.train, loader.steps_per_epoch())
+            epoch, extra = ckpt.restore("latest", model, full_opt, scheduler)
+            local.load_state_dict(shard_state_dict(model.state_dict(), layout, tensor.rank,
+                                                   tensor.size))
+            optimizer.load_state_dict(shard_optimizer_state(
+                full_opt.state_dict(), optimizer_param_names(full_opt, model), layout,
+                tensor.rank, tensor.size))
+            del full_opt
         start_epoch = epoch + 1
         best_score = extra.get("best_score", 0.0)
         es_cnt = int(extra.get("es_cnt", 0))
@@ -328,7 +379,9 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
         extra = {"best_score": best_score, "es_cnt": es_cnt}
         if plateau is not None:
             extra.update(plateau_best=plateau.best, plateau_num_bad=plateau.num_bad_epochs)
-        ckpt.save(tag, model, optimizer, scheduler, epoch, extra=extra)
+        opt_state = (optimizer.state_dict() if tensor is None else gather_optimizer_state(
+            optimizer.state_dict(), optimizer_param_names(optimizer, local), layout, tensor))
+        ckpt.save(tag, model, opt_state, scheduler, epoch, extra=extra)
 
     history = []
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
@@ -382,6 +435,8 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
             epoch_log["step_times"] = step_times
             history.append(epoch_log)
 
+            if tensor is not None:   # the full weights from the shards, for eval and saves
+                model.load_state_dict(gather_state_dict(local.state_dict(), layout, tensor))
             if eval_ds is not None and (epoch + 1) % cfg.train.eval_epoch_interval == 0:
                 t0 = time.time()
                 # eval.fused_train_eval picks the fused device path over the

@@ -11,6 +11,15 @@ update (cone/train.py:87-88), in the train step.
 2D-TAN: Adam with its L2 weight decay and a ReduceLROnPlateau on the eval
 stop score (cone_2dtan/moment_localization/train.py:143-147), gradients
 clipped to a global norm of 10 in the train step (train/tan_step.py).
+
+Parameters without a gradient in a step (the adapter before
+start_epoch_for_adapter, an unused text position table) step as in
+cone_tpu, whose optax chains see a zero gradient for them: the train steps
+give each a zero gradient after the clip (`zero_missing_grads`), so AdamW
+decays it and Adam's L2 decay moves it, and every parameter's step count is
+optax's shared count. The original CONE and 2D-TAN recipes, on torch's
+optimizers, skip such a parameter; this is cone_tpu's departure from them,
+which the port shares.
 """
 
 from __future__ import annotations
@@ -50,10 +59,7 @@ def make_tan_optimizer(model: torch.nn.Module, cfg: TrainConfig):
     AdamW's decoupled decay; the lr falls by `plateau_factor` after more
     than `plateau_patience` evals whose stop score did not rise by more
     than 1e-4 relative (torch's rel-mode max; lib/core/config.py:75-76).
-    Like the reference, Adam skips a parameter without a gradient in a step
-    (the adapter before start_epoch_for_adapter), where the JAX package's
-    optax Adam advances its step count for every parameter. The
-    scheduler's `best` and `num_bad_epochs` travel in the checkpoints'
+    The scheduler's `best` and `num_bad_epochs` travel in the checkpoints'
     extra state (train/loop.py), its lr in the optimizer's."""
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
                            weight_decay=cfg.wd)
@@ -61,3 +67,11 @@ def make_tan_optimizer(model: torch.nn.Module, cfg: TrainConfig):
         opt, mode="max", factor=cfg.plateau_factor, patience=cfg.plateau_patience,
         threshold=1e-4, threshold_mode="rel")
     return opt, plateau
+
+
+def zero_missing_grads(params) -> None:
+    """A zero gradient for each of `params` that has none (module
+    docstring): the update cone_tpu's optax chains make for it."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)

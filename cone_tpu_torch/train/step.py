@@ -29,8 +29,9 @@ from cone_tpu_torch.config import ConeConfig
 from cone_tpu_torch.models.dropout import global_rows, step_seed
 from cone_tpu_torch.models.losses import compute_losses, loss_weight_dict, total_loss
 from cone_tpu_torch.ops.pooling import matching_embeds_gt
-from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce
+from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce, clip_grad_norm_
 from cone_tpu_torch.parallel.mesh import row_block
+from cone_tpu_torch.train.optim import zero_missing_grads
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -82,13 +83,17 @@ def make_loss_fn(model, cfg: ConeConfig, reduce: GroupReduce = LOCAL):
 
 
 def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
-                    reduce: GroupReduce = LOCAL):
+                    reduce: GroupReduce = LOCAL, tp=None):
     """train_step(batch, adapter_on) -> metrics: every criterion term,
     loss_overall and grad_norm (the global gradient norm before the clip),
     as 0-d tensors on the device; the model is in train mode for the step.
     Parameters without a gradient in a step (the adapter before it is
-    switched on, an unused text position table) are left alone by AdamW,
-    as in the reference, and by the gradient all-reduce.
+    switched on, an unused text position table) stay out of the gradient
+    all-reduce and the norm, then take a zero gradient, so AdamW decays
+    them and counts the step as cone_tpu's optax does (train/optim.py).
+    Tensor parallel (`tp`, a distributed.TensorParallel; the model cut by
+    parallel/mesh.shard_model, `reduce` over the dp group): the norm sums
+    the shards' squares over the tp group.
 
     The step's two forwards draw their dropout masks, in call order, from
     one generator on the model's device, seeded from (train.seed, global
@@ -113,7 +118,8 @@ def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
         total.backward()
         reduce.sum_grads(params)
         # the pre-clip norm (torch's own clip, cone/train.py:87-88)
-        grad_norm = torch.nn.utils.clip_grad_norm_(params, clip)
+        grad_norm = clip_grad_norm_(params, clip, tp)
+        zero_missing_grads(params)
         optimizer.step()
         scheduler.step()
         metrics = global_terms(losses, reduce)

@@ -21,6 +21,7 @@ from cone_tpu_torch.models.losses import adapter_nce_share
 from cone_tpu_torch.models.tan import bce_rescale_loss
 from cone_tpu_torch.ops.pooling import matching_embeds_gt
 from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce
+from cone_tpu_torch.train.optim import zero_missing_grads
 from cone_tpu_torch.train.step import batch_to_device, global_terms
 
 GRAD_CLIP = 10.0
@@ -85,7 +86,10 @@ def make_tan_train_step(model, optimizer, tan_cfg: TanConfig, use_neg_loss: bool
                         adapter_loss_coef: float = 0.1, reduce: GroupReduce = LOCAL):
     """train_step(batch, adapter_on) -> metrics: each loss term of the
     global batch, loss_overall and grad_norm (the global gradient norm
-    before the clip), as 0-d tensors on the device."""
+    before the clip), as 0-d tensors on the device. A parameter without a
+    gradient (the adapter while it is off) takes a zero gradient after the
+    clip, so Adam's L2 decay moves it as cone_tpu's
+    clip -> add_decayed_weights -> adam chain does (train/optim.py)."""
     loss_fn = make_tan_loss_fn(model, tan_cfg, use_neg_loss, adapter_loss_coef, reduce)
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
@@ -97,6 +101,7 @@ def make_tan_train_step(model, optimizer, tan_cfg: TanConfig, use_neg_loss: bool
         total.backward()
         reduce.sum_grads(params)
         grad_norm = torch.nn.utils.clip_grad_norm_(params, GRAD_CLIP)
+        zero_missing_grads(params)
         optimizer.step()
         metrics = global_terms(losses, reduce)
         metrics["grad_norm"] = grad_norm

@@ -254,7 +254,9 @@ def test_what_waits_raises_and_names_its_roadmap_item(workdir, monkeypatch):
     monkeypatch.setitem(sys.modules, "lmdb", None)
     with pytest.raises(ImportError, match="convert-store --format lmdb"):
         open_array_store(str(workdir["root"] / "features"))  # an LMDB directory
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):   # tensor parallel waits
+    # item 11 is in: tensor parallel training runs over --distributed ranks
+    # (tests/test_torch_tp.py), and without them is refused, naming the flag
+    with pytest.raises(SystemExit, match="tp_devices=2 .* needs --distributed"):
         t_main(["train", "--workdir", workdir["run"], "--preset", "tan_ego4d",
                 "--set", "train.tp_devices=2"])
     if not torch.cuda.is_available():

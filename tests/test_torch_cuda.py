@@ -564,6 +564,62 @@ def test_two_gloo_ranks_share_the_card_and_agree(card, tmp_path):
         assert r["dispatches"] > 0 and r["eval_launches"] == r["train_launches"] == r["dispatches"]
 
 
+def _tp_ranks(repo, out, argv, world=2):
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cone_tpu_torch.tools.dist_worker", "--out", out, "--width",
+         "narrow", "--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+         "--num_processes", str(world), "--process_id", str(i), "--timeout_s", "120"] + argv,
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(world)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+
+
+@pytest.mark.parametrize("world", [2, 4], ids=["dp1_tp2", "dp2_tp2"])
+def test_tp_gloo_ranks_on_the_card_equal_one_process(card, tmp_path, world):
+    """Tensor parallel on cuda:0: the narrow width's 3 train steps
+    (cone_tpu_torch/tools/dist_worker.py --steps, dropouts 0.1 / 0.5) on a
+    (world / 2, 2) grid of gloo ranks sharing the card, against the same
+    steps in this process: every metric and the gathered weights within
+    tests/test_tp.py's rtol 2e-4, atol 1e-5; the ranks' shards and AdamW
+    moments the shard's shape, gathered back to the bit."""
+    import dataclasses
+    import json
+    import os
+
+    from cone_tpu_torch.tools import dist_worker
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg, _ = dist_worker.problem("narrow")
+    cfg.replace(train=dataclasses.replace(cfg.train, tp_devices=2)).save(
+        str(tmp_path / "cfg.json"))
+    out = str(tmp_path / "out")
+    _tp_ranks(repo, out, ["--steps", "3", "--config", str(tmp_path / "cfg.json")], world)
+    single = dist_worker.train_steps("narrow", card, 3, cfg, state_path=out + ".single.pt")
+    ranks = [json.load(open(f"{out}.{i}.json")) for i in range(world)]
+    for r in ranks:
+        assert (r["backend"], r["device"], r["tp"]) == ("gloo", "cuda:0", 2)
+        assert r["roundtrip_exact"] and r["metrics"] == ranks[0]["metrics"]
+        assert r["shard_shapes"]["transformer.encoder.layers.0.self_attn.in_proj_weight"] == [
+            96, 64]
+    for got, want in zip(ranks[0]["metrics"], single["metrics"]):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-5, err_msg=k)
+    state = torch.load(out + ".state.pt", weights_only=True)
+    for k, w in torch.load(out + ".single.pt", weights_only=True).items():
+        np.testing.assert_allclose(state[k].numpy(), w.numpy(), rtol=2e-4, atol=1e-5,
+                                   err_msg=k)
+
+
 TOWER_TOL = 1e-4   # card vs CPU, projected features: times max(1, largest |feature|)
 
 

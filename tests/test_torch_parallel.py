@@ -487,9 +487,9 @@ def test_shards_and_row_blocks(monkeypatch):
     assert row_block(32, 1, 2) == (16, 32) and row_block(8, 3, 4) == (6, 8)
     with pytest.raises(ValueError, match="divide"):
         row_block(30, 0, 4)
-    assert tp_size(1) == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp_size(2)
+    assert tp_size(1, 1) == 1 and tp_size(2, 4) == 2 and tp_size(4, 4) == 4
+    with pytest.raises(ValueError, match="3 rank.* do not divide by train.tp_devices=2"):
+        tp_size(2, 3)
 
 
 def test_a_group_of_one_rank():

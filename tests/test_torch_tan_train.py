@@ -11,9 +11,9 @@ on the CPU.
     weights and batches: losses and grad norms within 1e-4 relative, each
     leaf's update (final minus initial weights) within 5e-3 relative at
     its median entry, three
-    steps with the adapter on from the first (torch's Adam skips a
-    parameter without a gradient, optax's advances it: the two agree only
-    so), and one step with it off;
+    steps with the adapter on from the first, and one step with it off
+    (the adapter, with no gradient, moved by the L2 decay alone as
+    cone_tpu's chain moves it);
   * the plateau controller: the same lr sequence as cone_tpu's over one
     score sequence; its state and the early-stop counters surviving a
     resume;
@@ -138,11 +138,10 @@ def test_step_matches_cone_tpu(adapter_steps):
         name = jax.tree_util.keystr(path)
         start = _leaf(w0, path)
         got_upd = leaf - start
-        if "adapter_layer" in name and not any(adapter_steps):
-            # no gradient reaches the adapter: torch's Adam, like the
-            # reference's, leaves it where it was; optax's decays it
-            assert not got_upd.any(), name
-            continue
+        # with the adapter off no gradient reaches it: both Adams see a
+        # zero gradient plus the L2 decay and move it by about lr toward
+        # zero (cone_tpu's chain; the reference's Adam would skip it), so
+        # it is held like every other leaf.
         # the update, not the final weights: Adam moves a weight by about lr
         # a step, so an absolute weight limit would pass a missing update.
         # Entry by entry, as Adam divides by sqrt(v): an ULP-level

@@ -202,6 +202,65 @@ def test_train_step_equals_cone_tpu():
         assert diff <= n_steps * lr, (jax.tree_util.keystr(path), diff)
 
 
+ADAPTER_UPDATE_RTOL = 5e-3   # tests/test_torch_tan_train.py's UPDATE_RTOL
+
+
+def test_adapter_switch_equals_cone_tpu():
+    """start_epoch_for_adapter = 1 in steps: 2 steps with the adapter off,
+    then 2 with it on, against cone_tpu's step on the same weights and
+    batches. While it is off the adapter has no gradient: cone_tpu's optax
+    AdamW decays it and advances its step count, so its first updates after
+    the switch are bias-corrected as at step 3, not step 1. The port gives
+    such a parameter a zero gradient and so takes the same updates (a port
+    that skipped it, as torch's AdamW does with no gradient, moves each
+    adapter entry about 1.6x as far). Each adapter leaf's update, final
+    minus initial weights, is held at its median entry, as
+    test_torch_tan_train.py holds TAN's."""
+    adapter_steps, lr = (False, False, True, True), 1e-4
+    jcfg = JConeConfig(model=JModelConfig(**NARROW), data=JDataConfig(**NARROW_DATA),
+                       train=JTrainConfig(lr=lr, lr_drop=120))
+    cfg = ConeConfig(model=ModelConfig(**NARROW), data=DataConfig(**NARROW_DATA),
+                     train=TrainConfig(lr=lr, lr_drop=120))
+    ds = make_synthetic_dataset(cfg.data, n_videos=4, queries_per_video=6,
+                                ctx_l_range=(60, 120), dim=16, seed=6)
+    batches = list(TrainLoader(ds, bsz=6, seed=1).epoch(0))
+    assert len(batches) == len(adapter_steps)
+    model = build_family(cfg, seed=0, device="cpu")
+    w0 = params_to_jax(model.state_dict(), cfg.model)
+    params = jax.tree_util.tree_map(jnp.asarray, w0)
+    tx = j_make_optimizer(params, jcfg.train, steps_per_epoch=len(batches))
+    opt_state = tx.init(params)
+    j_step = j_make_train_step(JConeModel(jcfg.model), tx, jcfg)
+    opt, sched = make_optimizer(model, cfg.train, steps_per_epoch=len(batches))
+    step = make_train_step(model, opt, sched, cfg)
+    for adapter_on, batch in zip(adapter_steps, batches):
+        got = to_floats(step(batch, adapter_on))
+        params, opt_state, want = j_step(params, opt_state,
+                                         {k: jnp.asarray(v) for k, v in batch.items()},
+                                         jax.random.PRNGKey(0), adapter_on)
+        want = {k: float(v) for k, v in want.items()}
+        assert set(got) == set(want) and ("loss_adapter" in got) == adapter_on
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), (k, got[k], want[k])
+    port = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(model.state_dict(),
+                                                                  cfg.model)))
+    port = {jax.tree_util.keystr(p): v for p, v in port.items()}
+    start = {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(w0)}
+    n_adapter = 0
+    for path, v in jax.tree_util.tree_leaves_with_path(jax.device_get(params)):
+        name = jax.tree_util.keystr(path)
+        assert float(np.abs(port[name] - np.asarray(v)).max()) <= len(batches) * lr, name
+        if "adapter_layer" not in name:
+            continue
+        n_adapter += 1
+        got_upd, want_upd = port[name] - start[name], np.asarray(v) - start[name]
+        moved = want_upd != 0
+        assert moved.mean() > 0.5, name
+        err = np.median(np.abs(got_upd - want_upd)[moved] / np.abs(want_upd)[moved])
+        assert err <= ADAPTER_UPDATE_RTOL, (name, err)
+    assert n_adapter == 4
+
+
 # ------------------------------------------------ model and optimizer
 
 def test_xavier_covers_the_transformer_matrices_of_cone_tpu():
@@ -338,7 +397,11 @@ def test_resume_from_latest(trained, cfg, ds, tmp_path):
     raw = torch.load(os.path.join(wd, "model_e0008.ckpt"), weights_only=True)
     assert raw["epoch"] == 8 and raw["extra"] == extra0
     assert raw["lr_scheduler"]["last_epoch"] == 36
-    assert {int(s["step"]) for s in raw["optimizer"]["state"].values()} == {36, 32}
+    # every parameter counts every step, the adapter's 4 steps without a
+    # gradient (epoch 0, before start_epoch_for_adapter) included, as
+    # cone_tpu's shared optax count does
+    assert {int(s["step"]) for s in raw["optimizer"]["state"].values()} == {36}
+    assert len(raw["optimizer"]["state"]) == len(list(build_family(cfg, 0, "cpu").parameters()))
 
 
 def test_warm_start_init_ckpt(trained, cfg, ds, tmp_path):
@@ -452,7 +515,10 @@ def test_unported_training_options_raise(cfg, ds, tmp_path, monkeypatch, section
         with pytest.raises(ValueError, match="multiscale runs on one rank, not 2"):
             train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match=item):
+        # tensor parallelism trains now (tests/test_torch_tp.py): what raises,
+        # before the workdir exists, is a group whose size tp does not divide
+        # (here no group: one rank)
+        with pytest.raises(ValueError, match="do not divide by train.tp_devices=2"):
             train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
     assert not os.path.exists(tmp_path / "run")
 
@@ -481,7 +547,8 @@ def test_cli_train_then_infer(tmp_path):
     for f in ("config.json", "model_latest.ckpt", "latest_preds.jsonl", "metrics.jsonl"):
         assert os.path.exists(os.path.join(wd, f)), f
     assert ConeConfig.load(os.path.join(wd, "config.json")) == resolved
-    with pytest.raises(NotImplementedError, match="item 11"):   # tensor parallelism waits
+    # tensor parallelism needs a group of ranks (tests/test_torch_tp.py runs one)
+    with pytest.raises(SystemExit, match="needs --distributed"):
         t_main(argv + ["--set", "train.tp_devices=2"])
     # --mesh: data parallel over a group of this one rank, the same run
     mesh_wd = wd + "_mesh"
@@ -529,3 +596,31 @@ def test_cli_train_then_infer(tmp_path):
     for r in want:  # the debug eval scored a prefix of the queries
         np.testing.assert_allclose(got[r["query_id"]]["predicted_times"],
                                    r["predicted_times"], rtol=0, atol=1e-6)
+
+
+def test_debug_nans_raises_at_the_op(cfg, ds, tmp_path, monkeypatch):
+    """`--debug_nans` (cone_tpu's flag; the 2D-TAN reference's
+    set_detect_anomaly) runs the command under torch's anomaly mode with
+    its NaN check: a train step fed a NaN feature (one frame of the
+    negative window) raises at the backward op that first produces a NaN,
+    where without the flag the step returns NaN losses. The mode ends with
+    the command."""
+    from cone_tpu_torch.train import loop
+
+    def one_nan_step(cfg, train_ds, eval_ds, workdir, **kw):
+        model = build_family(cfg, seed=0, device="cpu")
+        opt, sched = make_optimizer(model, cfg.train, steps_per_epoch=1)
+        batch = dict(next(iter(TrainLoader(train_ds, bsz=8, seed=0).epoch(0))))
+        batch["neg_motion"] = batch["neg_motion"].copy()
+        batch["neg_motion"][0, 0, 0] = np.nan
+        return to_floats(make_train_step(model, opt, sched, cfg)(batch, True))
+
+    monkeypatch.setattr(loop, "train", one_nan_step)
+    argv = ["train", "--synthetic", "--device", "cpu", "--workdir", str(tmp_path / "w"),
+            "--set", "model.hidden_dim=32", "--set", "model.dim_feedforward=64",
+            "--set", "model.enc_layers=1", "--set", "model.dec_layers=1"]
+    metrics = t_main(argv)
+    assert np.isnan(metrics["loss_overall"]) and not torch.is_anomaly_enabled()
+    with pytest.raises(RuntimeError, match="Backward0' returned nan values"):
+        t_main(["--debug_nans"] + argv)
+    assert not torch.is_anomaly_enabled()
