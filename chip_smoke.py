@@ -95,7 +95,16 @@ Phases, each of which raises (exit code != 0) on failure:
      ego4d_scratch (bf16), 2 steps against one process; (c) the tp
      all-reduces of a step, their bytes and ms; (d) the gathered checkpoint
      evaluated in one process against the tp run's own evaluation;
- 14. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+ 14. the real-data runbook through the port (runbook_phase): `python -m
+     cone_tpu_torch.tools.parity ego4d` on a synthetic challenge json and npy
+     features at the Ego4D preset's full width, a five-key reference
+     checkpoint, the coarse kernel on: one launch per dispatch, its row
+     passes, a wrong row exits nonzero, `infer --device cpu` of the workdir
+     gives the card's moments;
+ 15. train.multiscale on the ranks of one host (multiscale_ranks_phase): dp 2
+     and dp 1 x tp 2 gloo ranks sharing the card, `train` at the Ego4D preset
+     (bsz 32, 2 steps, one eval epoch), against one process;
+ 16. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -1436,6 +1445,307 @@ def tp_phase(card, single, device="cuda", width="ego4d"):
               f"{meas['dp1_tp2_train']['step_ms_rank1']:.2f} ms against one process's "
               f"{meas['dp1_tp2_train']['step_ms_single']:.2f} (a correctness run on one card, "
               f"not a speed figure); phase {time.time() - t_phase:.1f} s", flush=True)
+    meas["phase_s"] = time.time() - t_phase
+    return meas, launches
+
+
+def reference_checkpoint(cfg, path, seed=0, epoch=29):
+    """A checkpoint as the reference writes it (cone/train.py:184-191), its
+    five keys: random_reference_state_dict(cfg.model, seed) as `model`;
+    AdamW over the reference's two groups (the adapter at lr x 0.1) and its
+    StepLR after epoch + 1 epochs of one update each (on a copy of the
+    weights, with seeded gradients); `epoch`; and `opt`, the reference's
+    argparse options, which hold a torch.device."""
+    import argparse
+
+    import torch
+
+    from cone_tpu_torch.convert import load_reference_state_dict, random_reference_state_dict
+    from cone_tpu_torch.models.cone import ConeModel
+
+    sd = load_reference_state_dict(random_reference_state_dict(cfg.model, seed=seed))
+    model = ConeModel(cfg.model, device="cpu")
+    model.load_state_dict(sd)
+    named = list(model.named_parameters())
+    lr = cfg.train.lr
+    opt = torch.optim.AdamW(
+        [{"params": [p for n, p in named if "adapter_layer" not in n]},
+         {"params": [p for n, p in named if "adapter_layer" in n], "lr": lr * cfg.train.coef_lr}],
+        lr=lr, weight_decay=cfg.train.wd)
+    sched = torch.optim.lr_scheduler.StepLR(opt, cfg.train.lr_drop)
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(epoch + 1):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=gen)
+        opt.step()
+        sched.step()
+    options = argparse.Namespace(device=torch.device("cuda"), dset_name=cfg.data.dset_name,
+                                 lr=lr, max_v_l=cfg.data.max_v_l, bsz=cfg.train.bsz,
+                                 results_dir="results/ego4d", eval_split_name="val")
+    torch.save({"model": sd, "optimizer": opt.state_dict(), "lr_scheduler": sched.state_dict(),
+                "epoch": epoch, "opt": options}, path)
+
+
+def _challenge_assets(root, ds, clip_length):
+    """The runbook's raw inputs from a synthetic dataset: a nested
+    Ego4D-NLQ challenge json (one annotation a clip; query ids
+    '{annotation}_{index}' after `reformat`) and npy directories of the
+    video features, query tokens and query CLS under those ids. Returns
+    (gt path, video dir, tokens dir, cls dir)."""
+    import numpy as np
+
+    dirs = [os.path.join(root, d) for d in ("vid_npy", "tok_npy", "cls_npy")]
+    for d in dirs:
+        os.makedirs(d)
+    videos = []
+    for v in ds.video_ids:
+        feats = ds.appear.get(v)
+        np.save(os.path.join(dirs[0], f"{v}.npy"), feats)
+        queries = []
+        for j, e in enumerate(e for e in ds.examples if e.clip_id == v):
+            np.save(os.path.join(dirs[1], f"{v}_ann_{j}.npy"), ds.text.get_tokens(e.query_id))
+            np.save(os.path.join(dirs[2], f"{v}_ann_{j}.npy"), ds.text.get_cls(e.query_id))
+            queries.append({"query": e.query, "clip_start_sec": e.timestamps[0],
+                            "clip_end_sec": e.timestamps[1]})
+        videos.append({"video_uid": f"uid_{v}", "clips": [{
+            "clip_uid": v, "video_start_sec": 0.0,
+            "video_end_sec": round(len(feats) * clip_length, 3),
+            "annotations": [{"annotation_uid": f"{v}_ann", "language_queries": queries}]}]})
+    gt = os.path.join(root, "nlq_val.json")
+    with open(gt, "w") as f:
+        json.dump({"videos": videos}, f)
+    return [gt] + dirs
+
+
+def runbook_phase(card, device="cuda", cfg=None):
+    """The real-data runbook through the port (phase 14:
+    cone_tpu_torch/tools/parity.py, every stage through the port's CLI) on
+    the card, at the Ego4D preset's full width (hidden 256, 8 heads, 2+2
+    layers, 256-d features), the coarse kernel on (`--set
+    eval.use_pallas_coarse=true`): a synthetic challenge json over 8 clips
+    of 1 500-2 300 features x 4 queries as seeded npy directories, and a
+    five-key reference checkpoint (`reference_checkpoint`). (a) the chain
+    in this process at a wide tolerance, one coarse launch per dispatch;
+    the recall row it computed; (b) the chain again at that row, which
+    passes; (c) `python -m cone_tpu_torch.tools.parity` at a wrong row,
+    which exits nonzero; (d) `infer` of (a)'s workdir with --device cpu:
+    ranklists exact up to counted near-tie flips, moments within the
+    parity limits. `device` and `cfg` (a narrow config, passed to the chain
+    as a preset file) are there to rehearse the phase on the CPU. Returns
+    (measurements, coarse launches by run)."""
+    import numpy as np
+
+    from cone_tpu_torch import cli
+    from cone_tpu_torch.config import ego4d_config
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cone_tpu_torch.eval.metrics import evaluate_ego4d_nlq
+    from cone_tpu_torch.eval.pipeline import InferencePipeline
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.tools import parity
+    from cone_tpu_torch.train.checkpoint import load_config, load_model
+    from cone_tpu_torch.utils.io import load_jsonl
+
+    t_phase = time.time()
+    preset = "ego4d" if cfg is None else None
+    cfg = ego4d_config() if cfg is None else cfg
+    n_videos, qpv = 8, 4
+    ds = make_synthetic_dataset(cfg.data, n_videos=n_videos, queries_per_video=qpv,
+                                ctx_l_range=(1500, 2301), dim=cfg.model.v_appear_feat_dim,
+                                signal=3.0, seed=11)
+    dispatches = n_videos * -(-qpv // cfg.eval.query_chunk)
+    sets = ["eval.use_pallas_coarse=true"]
+    meas, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sources = _challenge_assets(tmp, ds, cfg.data.clip_length)
+        gt = sources[0]
+        if preset is None:
+            preset = os.path.join(tmp, "preset.json")
+            cfg.save(preset)
+        ckpt = os.path.join(tmp, "model_best.ckpt")
+        reference_checkpoint(cfg, ckpt)
+        args = [gt, ckpt] + sources[1:]
+
+        # (a) the chain at a wide tolerance
+        co.coarse_segment_max.launches = 0
+        t0 = time.time()
+        run = parity.run("ego4d", os.path.join(tmp, "a"), *args, src_format="npy_dir",
+                         expect_tol=101, preset=preset, sets=sets, device=device)
+        meas["chain_s"] = time.time() - t0
+        launches["runbook"] = co.coarse_segment_max.launches
+        if device == "cuda":
+            check(launches["runbook"] == dispatches,
+                  f"runbook infer: {launches['runbook']} coarse launches for {dispatches} "
+                  "dispatches")
+        with open(os.path.join(run, f"submission_ego4d_{parity.CKPT_TAG}.json")) as f:
+            preds = json.load(f)["results"]
+        with open(gt) as f:
+            results, miou = evaluate_ego4d_nlq(preds, json.load(f), [0.3, 0.5], [1, 5])
+        row = {f"R{k}@{t}": 100 * float(results[ti][ki]) for ti, t in enumerate((0.3, 0.5))
+               for ki, k in enumerate((1, 5))}
+        row["mIoU"] = 100 * float(miou)
+        expect = ",".join(f"{k}={v:.4f}" for k, v in row.items())
+        meas["row"] = row
+
+        # (b) the chain at the row it computed
+        co.coarse_segment_max.launches = 0
+        parity.run("ego4d", os.path.join(tmp, "b"), *args, src_format="npy_dir",
+                   expect=expect, expect_tol=0.01, preset=preset, sets=sets, device=device)
+        launches["runbook_at_its_row"] = co.coarse_segment_max.launches
+        if device == "cuda":
+            check(launches["runbook_at_its_row"] == dispatches,
+                  f"runbook at its row: {launches['runbook_at_its_row']} coarse launches")
+
+        # (c) the module at a wrong row: a nonzero exit
+        wrong = ",".join(f"{k}={v + 37.5:.4f}" for k, v in row.items())
+        out = subprocess.run(
+            [sys.executable, "-m", "cone_tpu_torch.tools.parity", "ego4d",
+             os.path.join(tmp, "c")] + args + [
+                "--src_format", "npy_dir", "--expect", wrong, "--expect_tol", "0.01",
+                "--preset", preset, "--device", device] + [x for kv in sets
+                                                           for x in ("--set", kv)],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+            timeout=600)
+        check(out.returncode != 0 and "parity check FAILED" in out.stdout + out.stderr,
+              f"the runbook at a wrong row exited {out.returncode}:\n{out.stdout[-2000:]}"
+              f"{out.stderr[-2000:]}")
+        check("restored 'reference'" in out.stdout and "Official Ego4D" in out.stdout,
+              f"the wrong-row run stopped before its eval stage:\n{out.stdout[-2000:]}")
+
+        # (d) infer of (a)'s workdir on the CPU
+        val = os.path.join(tmp, "a", "val.jsonl")
+        cpu_dir = os.path.join(tmp, "cpu")
+        t0 = time.time()
+        cli.main(["infer", "--workdir", run, "--ckpt", parity.CKPT_TAG, "--eval_path", val,
+                  "--save_all", "--device", "cpu", "--results_dir", cpu_dir])
+        meas["cpu_infer_s"] = time.time() - t0
+        name = f"inference_{parity.CKPT_TAG}_windows.jsonl"
+        card_rl = {r["query_id"]: r["ranklist"] for r in load_jsonl(os.path.join(run, name))}
+        cpu_rl = {r["query_id"]: r["ranklist"] for r in load_jsonl(os.path.join(cpu_dir, name))}
+        check(card_rl.keys() == cpu_rl.keys() and len(card_rl) == n_videos * qpv,
+              f"ranklists of {len(card_rl)} / {len(cpu_rl)} queries")
+        run_cfg = load_config(run)
+        eval_ds = cli._open_dataset(run_cfg, val)
+        pipe_cpu = InferencePipeline(load_model(run, parity.CKPT_TAG, device="cpu")[0],
+                                     eval_ds, run_cfg, device="cpu")
+        same, flips = near_tie_flips(pipe_cpu, eval_ds, card_rl, cpu_rl)
+        span_err = score_err = 0.0
+        for m in ("", "_proposal", "_matching"):
+            f = f"inference_{parity.CKPT_TAG}{m}_preds.jsonl"
+            cpu_rows = {r["query_id"]: np.asarray(r["predicted_times"])
+                        for r in load_jsonl(os.path.join(cpu_dir, f))}
+            for r in load_jsonl(os.path.join(run, f)):
+                if card_rl[r["query_id"]] != cpu_rl[r["query_id"]]:
+                    continue   # another window set: counted above, not held
+                got, want = np.asarray(r["predicted_times"]), cpu_rows[r["query_id"]]
+                check(got.shape == want.shape and len(got),
+                      f"{f} {r['query_id']}: {got.shape} on the card, {want.shape} on the CPU")
+                span_err = max(span_err, float(np.abs(got[:, :2] - want[:, :2]).max()))
+                score_err = max(score_err, float(np.abs(got[:, 2:] - want[:, 2:]).max()))
+        check(span_err <= SPAN_ATOL and score_err <= SCORE_ATOL,
+              f"runbook card vs CPU: spans {span_err}, scores {score_err}")
+        meas.update(card_vs_cpu=dict(span_err=span_err, score_err=score_err,
+                                     ranklists_identical=same, near_tie_flips=flips),
+                    queries=len(card_rl), dispatches=dispatches)
+    meas["phase_s"] = time.time() - t_phase
+    print(f"runbook (tools/parity.py ego4d) at the Ego4D preset's full width on {device}, "
+          f"{n_videos} clips x {qpv} queries, a five-key reference checkpoint: chain "
+          f"{meas['chain_s']:.1f} s, {launches['runbook']} + {launches['runbook_at_its_row']} "
+          f"coarse launches for {dispatches} dispatches a chain; its row {expect} passes, a "
+          f"wrong row exits {out.returncode}; infer --device cpu {meas['cpu_infer_s']:.1f} s: "
+          f"ranklists {same}/{len(card_rl)} identical, {flips} near-tie flips, spans "
+          f"{span_err:.2e} (<= {SPAN_ATOL}), scores {score_err:.2e} (<= {SCORE_ATOL}); phase "
+          f"{meas['phase_s']:.1f} s [{card}]", flush=True)
+    return meas, launches
+
+
+def multiscale_ranks_phase(card, device="cuda", width="ego4d"):
+    """train.multiscale on the ranks of one host, sharing the card over gloo
+    (phase 15): dp 2 x tp 1 and dp 1 x tp 2 `train` of the ECCV'22 recipe at
+    the Ego4D preset's full width (cone_tpu_torch/tools/dist_worker.py
+    --multiscale: bsz 32, one epoch of 2 steps with the adapter on, the
+    preset's dropouts, one eval epoch through the coarse kernel), each
+    against the same run in this process: losses, criterion terms and grad
+    norms within PAR_RTOL, the checkpoints' weights within PAR_RTOL of
+    max(1, |w|), the gathered evaluation within the parity limits, one
+    coarse launch per dispatch on each rank; the warm step's ms of each
+    beside the one process's (ranks on one card: not a speed figure).
+    `device` and `width` are there to rehearse the phase on the CPU.
+    Returns (measurements, coarse launches by run)."""
+    import torch
+
+    from cone_tpu_torch.data.multiscale import MultiscaleTrainLoader
+    from cone_tpu_torch.tools import dist_worker
+
+    t_phase = time.time()
+    meas, launches = {}, {}
+    # what a dp rank's batch costs the host: every rank builds the whole
+    # batch (the epoch's generator draws for every example) and keeps its rows
+    cfg, ds = dist_worker.problem(width)
+    loader = MultiscaleTrainLoader(ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
+    build = {}
+    for label, hi in (("whole", cfg.train.bsz), ("dp2_rank", cfg.train.bsz // 2)):
+        build[label] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            next(loader.epoch(0, 0, hi))
+            build[label].append((time.perf_counter() - t0) * 1e3)
+    meas["batch_build_ms"] = build
+    print(f"multiscale batch build on the host ({width} width, bsz {cfg.train.bsz}): whole "
+          f"{[round(t, 2) for t in build['whole']]} ms, a dp 2 rank's rows "
+          f"{[round(t, 2) for t in build['dp2_rank']]} ms", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        single_wd = os.path.join(tmp, "single")
+        single = dist_worker.run(width, torch.device(device), single_wd, multiscale=True)
+        launches["multiscale_single"] = single["train_launches"] + single["eval_launches"]
+        want_w = torch.load(os.path.join(single_wd, "model_latest.ckpt"),
+                            weights_only=True)["model"]
+        meas["step_ms_single"] = single["step_ms"]
+        for name, tp in (("dp2", 1), ("dp1_tp2", 2)):
+            prefix = os.path.join(tmp, name)
+            ranks_s = _spawn_workers(["--out", prefix, "--width", width, "--device", device,
+                                      "--tp", str(tp), "--multiscale"], 2)
+            a, b = (json.load(open(f"{prefix}.{i}.json")) for i in range(2))
+            for r in (a, b):
+                check(r["backend"] == "gloo" and r["tp"] == tp and r["world"] == 2,
+                      f"{name} rank {r['rank']}: {r['backend']}, tp {r['tp']}, world "
+                      f"{r['world']}")
+                if device == "cuda":
+                    check(r["device"] == "cuda:0"
+                          and r["train_launches"] == r["eval_launches"] == r["dispatches"] > 0,
+                          f"{name} rank {r['rank']} on {r['device']}: coarse launches train "
+                          f"{r['train_launches']} / eval {r['eval_launches']}, want "
+                          f"{r['dispatches']} (its dispatches)")
+                launches[f"multiscale_{name}_rank{r['rank']}"] = (r["train_launches"]
+                                                                  + r["eval_launches"])
+            check(all(a[k] == b[k] for k in ("losses", "grad_norms", "terms", "rows",
+                                             "ranklists")), f"the two {name} ranks disagree")
+            vs = {k: _rel(a[k], single[k]) for k in ("losses", "grad_norms")}
+            vs["terms"] = max(abs(ta[k] - ts[k]) / max(1.0, abs(ts[k]))
+                              for ta, ts in zip(a["terms"], single["terms"]) for k in ts)
+            got_w = torch.load(f"{prefix}.workdir/model_latest.ckpt", weights_only=True)["model"]
+            vs["weights"] = max(float((got_w[k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                                for k, v in want_w.items())
+            check("loss_adapter" in single["terms"][0] and max(vs.values()) <= PAR_RTOL,
+                  f"multiscale {name} vs one process: {vs}")
+            span_err, score_err, flips = _gathered_eval_vs_single(a, single)
+            meas[name] = dict(
+                note="two ranks sharing one card over gloo: a correctness run, not a speed "
+                     "figure", vs_single_max_rel=vs, eval_span_err=span_err,
+                eval_score_err=score_err, ranklist_near_tie_flips=flips,
+                step_ms_rank0=a["step_ms"], step_ms_rank1=b["step_ms"], ranks_wall_s=ranks_s,
+                dispatches={0: a["dispatches"], 1: b["dispatches"]})
+            print(f"multiscale ranks ({name}, {width} width, 2 gloo ranks on {a['device']}) "
+                  f"through train vs one process: losses {vs['losses']:.2e}, terms "
+                  f"{vs['terms']:.2e}, grad norms {vs['grad_norms']:.2e}, weights "
+                  f"{vs['weights']:.2e} (<= {PAR_RTOL}); gathered eval spans {span_err:.2e}, "
+                  f"scores {score_err:.2e}, {flips} near-tie flips; coarse launches "
+                  f"{a['train_launches']} + {a['eval_launches']} / {b['train_launches']} + "
+                  f"{b['eval_launches']} for {a['dispatches']} / {b['dispatches']} dispatches; "
+                  f"step ms (host clock, the second is warm) rank 0 "
+                  f"{[round(t, 2) for t in a['step_ms']]}, rank 1 "
+                  f"{[round(t, 2) for t in b['step_ms']]} against one process's "
+                  f"{[round(t, 2) for t in single['step_ms']]} (ranks share one card: not a "
+                  f"speed figure); ranks {ranks_s:.1f} s [{card}]", flush=True)
     meas["phase_s"] = time.time() - t_phase
     return meas, launches
 
@@ -3005,6 +3315,12 @@ def main():
     # 13. tensor parallelism
     tp, tp_launches = tp_phase(smi, single)
 
+    # 14. the real-data runbook through the port
+    runbook, runbook_launches = runbook_phase(smi)
+
+    # 15. train.multiscale on the ranks of one host
+    ms_ranks, ms_launches = multiscale_ranks_phase(smi)
+
     if args.profile:
         profile_breakdown(pipe, n_q)
 
@@ -3015,12 +3331,13 @@ def main():
         replaces="cone_tpu/ops/pallas_coarse.py:66",
         launches=(launches + train_launches + tan_launches + tan_train_launches
                   + sum(par_launches.values()) + demo_launches + sum(data_launches.values())
-                  + sum(scratch_launches.values()) + sum(tp_launches.values())),
+                  + sum(scratch_launches.values()) + sum(tp_launches.values())
+                  + sum(runbook_launches.values()) + sum(ms_launches.values())),
         launches_by_path={"inference": launches, "train_eval": train_launches,
                           "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
                           **{f"parallel_{k}": v for k, v in par_launches.items()},
                           "demo": demo_launches, **data_launches, **scratch_launches,
-                          **tp_launches},
+                          **tp_launches, **runbook_launches, **ms_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -3044,7 +3361,8 @@ def main():
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
                       "parallel": parallel, "towers": towers, "data": data,
-                      "scratch": scratch, "tp": tp, "card": smi}))
+                      "scratch": scratch, "tp": tp, "runbook": runbook,
+                      "multiscale_ranks": ms_ranks, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

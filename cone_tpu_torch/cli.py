@@ -22,7 +22,8 @@ and `convert-store` turns LMDB, h5, npy or pt features into a .cfs file
 variants ego4d_scratch, mad_scratch, and the 2D-TAN family's tan_ego4d,
 tan_mad) or a --config file, writes its workdir (config.json, checkpoints,
 logs) and trains on one device (`--set train.multiscale=true`: the ECCV'22
-multiscale loader, one rank only), or data parallel over ranks
+multiscale loader; with --distributed on the ranks of one host, refused
+across hosts), or data parallel over ranks
 (parallel/distributed.py), one process each:
 
     train --distributed --coordinator HOST:PORT --num_processes N --process_id I

@@ -15,6 +15,12 @@ rows. A batch is
     rows [B, 4B)       extra multiscale windows
 so the train step applies the adapter NCE to the first B rows.
 
+Data parallel: a rank of a dp group takes the standard rows [lo, hi) and
+their extra rows [B + 3 lo, B + 3 hi) (three consecutive rows an example),
+in that order. The epoch's generator draws for every example in turn, so
+every rank builds the whole batch and keeps its rows (its cost is the
+whole batch's on every rank).
+
 The draws are cone_tpu's (cone_tpu/data/multiscale.py), in the same order:
 the epoch's generator default_rng((seed, epoch, 0x6D73)) shuffles and then
 draws every extra window, saliency frame and negative window; each
@@ -73,11 +79,20 @@ class MultiscaleTrainLoader(TrainLoader):
     """Batches with 4 windows per example: [standard x B ; extra x 3B]."""
 
     def epoch(self, epoch_i: int, lo: int = 0, hi=None):
-        """Yield this epoch's batches. The batch layout is position-dependent
-        (the adapter NCE takes the first B rows), so a batch cannot be
-        row-sliced across ranks: only the whole batch is built."""
-        if lo != 0 or hi not in (None, self.bsz):
-            raise ValueError(f"the multiscale loader builds whole batches, not rows {lo}:{hi}")
+        """Yield this epoch's batches, or of each the standard rows lo:hi
+        followed by their extra rows (module docstring)."""
+        hi = self.bsz if hi is None else hi
+        if not 0 <= lo < hi <= self.bsz:
+            raise ValueError(f"empty or outside batch slice {lo}:{hi} of bsz {self.bsz}")
+        b = self.bsz
+        for batch in self._batches(epoch_i):
+            if (lo, hi) == (0, b):
+                yield batch
+                continue
+            yield {k: v[lo:hi] if len(v) == b else np.concatenate(
+                [v[lo:hi], v[b + 3 * lo : b + 3 * hi]]) for k, v in batch.items()}
+
+    def _batches(self, epoch_i: int):
         cfg = self.ds.cfg
         pad_l = 2 * cfg.max_v_l
         rng = np.random.default_rng((self.seed, epoch_i, EPOCH_STREAM))

@@ -11,9 +11,12 @@ weights and (B, L, D) activations.
 The train step (train/step.py) seeds one generator per step from
 (train.seed, global step) and runs its forwards inside
 `global_rows(generator, n_rows, offset)`; every rank consumes the same
-stream, and one process is the one-rank case. Outside that context (a
-forward in training mode outside the train step) a call draws the local
-rows from torch's global generator, as nn.Dropout does.
+stream, and one process is the one-rank case. A multiscale rank holds two
+blocks of the global [standard x B ; extra x 3B] batch (data/multiscale.py),
+its standard rows and their extra rows: it names both as (first row, count)
+pairs and keeps each block's rows of the mask drawn for all 4B. Outside
+that context (a forward in training mode outside the train step) a call
+draws the local rows from torch's global generator, as nn.Dropout does.
 
 Tensor parallel: inside a sharded attention block or FFN a rank holds
 only its heads (dim 1 of the attention weights) or its hidden units (dim 2
@@ -32,13 +35,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-# (generator, global row count, this rank's first row) of the running step
+# (generator, global row count, this rank's first row or row blocks) of the
+# running step
 _ROWS: contextvars.ContextVar = contextvars.ContextVar("dropout_rows", default=None)
 
 
@@ -49,9 +53,12 @@ def step_seed(seed: int, step: int) -> int:
 
 
 @contextlib.contextmanager
-def global_rows(generator: Optional[torch.Generator], n_rows: int, offset: int):
+def global_rows(generator: Optional[torch.Generator], n_rows: int,
+                offset: Union[int, Sequence[Tuple[int, int]]]):
     """Within the block, every RowDropout draws its mask for `n_rows` rows
-    from `generator` and keeps rows offset : offset + its batch."""
+    from `generator` and keeps rows offset : offset + its batch, or, for
+    `offset` a sequence of (first row, count) blocks, those rows block by
+    block (their counts sum to its batch)."""
     token = _ROWS.set((generator, n_rows, offset))
     try:
         yield
@@ -73,16 +80,22 @@ class RowDropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         rows = _ROWS.get()
-        gen, n_rows, lo = (None, x.shape[0], 0) if rows is None else rows
-        if lo + x.shape[0] > n_rows:
-            raise ValueError(f"rows {lo}:{lo + x.shape[0]} outside a global batch of {n_rows}")
+        gen, n_rows, blocks = (None, x.shape[0], 0) if rows is None else rows
+        if isinstance(blocks, int):
+            blocks = ((blocks, x.shape[0]),)
+        if sum(n for _, n in blocks) != x.shape[0]:
+            raise ValueError(f"row blocks {blocks} do not hold a batch of {x.shape[0]}")
+        for lo, n in blocks:
+            if lo < 0 or lo + n > n_rows:
+                raise ValueError(f"rows {lo}:{lo + n} outside a global batch of {n_rows}")
         shape = [n_rows] + list(x.shape[1:])
         if shard is not None:
             shape[shard[0]] = shard[1]
         # float32 uniforms whatever x's dtype (flax's bernoulli draws in
         # float32): a bfloat16 run keeps the float32 run's masks
-        u = torch.rand(shape, generator=gen, device=x.device,
-                       dtype=torch.float32)[lo : lo + x.shape[0]]
+        u = torch.rand(shape, generator=gen, device=x.device, dtype=torch.float32)
+        parts = [u[lo : lo + n] for lo, n in blocks]
+        u = parts[0] if len(parts) == 1 else torch.cat(parts)
         if shard is not None:
             u = u.narrow(shard[0], shard[2], x.shape[shard[0]])
         scale = 0.0 if self.p == 1.0 else 1.0 / (1.0 - self.p)

@@ -55,8 +55,9 @@ from cone_tpu_torch.utils.device import resolve_device
 # or lags beyond it fails the run instead of hanging it
 TIMEOUT_S = 300
 
-# the CPU gloo group that carries metadata (the default group when it is gloo)
-_ctrl = {"group": None}
+# the CPU gloo group that carries metadata (the default group when it is
+# gloo), and every rank's (host name, card count) from the rendezvous
+_ctrl = {"group": None, "hosts": None}
 
 
 def rank_layout(hosts: Sequence[Tuple[str, int]], rank: int,
@@ -116,8 +117,8 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
         raise ValueError("num_processes > 1 and process_id need a coordinator")
     store.set_timeout(timeout)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
-    local_rank, backend = rank_layout(_gather_hosts(store, rnk, world, n_cards), rnk,
-                                      dev.type)
+    _ctrl["hosts"] = _gather_hosts(store, rnk, world, n_cards)
+    local_rank, backend = rank_layout(_ctrl["hosts"], rnk, dev.type)
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank % n_cards)
         torch.cuda.set_device(dev)
@@ -130,7 +131,13 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
 def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
-    _ctrl["group"] = None
+    _ctrl["group"] = _ctrl["hosts"] = None
+
+
+def n_hosts() -> int:
+    """The hosts the group's ranks run on, from the host names gathered at
+    the rendezvous; 1 with no group."""
+    return len({h for h, _ in _ctrl["hosts"]}) if _ctrl["hosts"] else 1
 
 
 def rank() -> int:

@@ -21,14 +21,17 @@ run when called in-process). Every rank:
 
 With --tp K (train.tp_devices, a world of a multiple of K ranks) the ranks
 train on the (world / K, K) grid of tensor parallelism and steps 3-4 are
-left out (the library and 2D-TAN have nothing to shard).
+left out (the library and 2D-TAN have nothing to shard). With --multiscale
+step 1 trains one epoch of the ECCV'22 multiscale recipe, adapter on, and
+steps 3-4 are left out.
 
     python -m cone_tpu_torch.tools.dist_worker --out PREFIX --steps N \
         [--config CFG.json] [--init W.pt] ...
 
 runs N train steps (train/step.make_train_step on the batches of epochs
-0, 1, ..., adapter on) on this rank's cell of the grid of the config's
-train.tp_devices instead (`train_steps`): per-step metrics, the final
+0, 1, ..., adapter on; the multiscale loader's under train.multiscale) on
+this rank's cell of the grid of the config's train.tp_devices instead
+(`train_steps`): per-step metrics, the final
 weights gathered to full tensors (rank 0 writes PREFIX.state.pt), the
 shard shapes of the weights and of AdamW's moments, whether the gathered
 state shards back to this rank's bit for bit, and the tp all-reduces of a
@@ -59,6 +62,7 @@ from cone_tpu_torch.config import (
     ConeConfig, DataConfig, EvalConfig, ModelConfig, TanConfig, TrainConfig, ego4d_config,
 )
 from cone_tpu_torch.data import TrainLoader, make_synthetic_dataset
+from cone_tpu_torch.data.multiscale import MultiscaleTrainLoader
 from cone_tpu_torch.parallel import distributed
 
 N_CORPUS_QUERIES = 6
@@ -222,7 +226,8 @@ def train_steps(width: str, device, n_steps: int, cfg: ConeConfig = None,
     if tensor is not None:
         local = copy.deepcopy(model)
         layout = mesh.shard_model(local, tensor)
-    loader = TrainLoader(ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
+    loader = (MultiscaleTrainLoader if cfg.train.multiscale else TrainLoader)(
+        ds, bsz=cfg.train.bsz, seed=cfg.train.seed)
     opt, sched = make_optimizer(local, cfg.train, loader.steps_per_epoch())
     step = make_train_step(local, opt, sched, cfg, reduce, tensor)
     lo, hi = row_block(cfg.train.bsz, reduce.rank, reduce.world)
@@ -269,10 +274,12 @@ def train_steps(width: str, device, n_steps: int, cfg: ConeConfig = None,
     return out
 
 
-def run(width: str, device, workdir: str, tp: int = 1) -> dict:
+def run(width: str, device, workdir: str, tp: int = 1, multiscale: bool = False) -> dict:
     """Steps 1-4 of the module docstring on `device` under the initialized
     group, or alone with none, on the grid of `tp`; returns this rank's
-    summary."""
+    summary. `multiscale`: `train` takes the ECCV'22 multiscale loader for
+    one epoch with the adapter on (an eval epoch at its end), then steps 1-2
+    only."""
     from cone_tpu_torch.ops import coarse as co
     from cone_tpu_torch.serve.corpus import CorpusRetriever
     from cone_tpu_torch.train.loop import build_family, evaluate, train
@@ -280,6 +287,10 @@ def run(width: str, device, workdir: str, tp: int = 1) -> dict:
     device = torch.device(device)
     cfg, ds = problem(width)
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, tp_devices=tp))
+    if multiscale:
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, multiscale=True, n_epoch=1, eval_epoch_interval=1,
+            start_epoch_for_adapter=0))
     out = {"rank": distributed.rank(), "world": distributed.world_size(),
            "backend": distributed.backend(), "device": str(device), "tp": tp,
            "dispatches": dispatches(cfg, ds)}
@@ -295,7 +306,7 @@ def run(width: str, device, workdir: str, tp: int = 1) -> dict:
     out["grad_norms"] = [h["grad_norm"] for h in history]
     out["step_ms"] = [t * 1e3 for h in history for t in h["step_times"]]
     out["param_sum"] = param_sum(model)
-    if distributed.backend() and tp == 1:
+    if distributed.backend() and tp == 1 and not multiscale:
         # the gradients the last step all-reduced: a parameter with none (the
         # unused text position table) takes a zero one after the all-reduce
         numel = sum(p.numel() for p in model.parameters()
@@ -311,7 +322,7 @@ def run(width: str, device, workdir: str, tp: int = 1) -> dict:
                    for m, rows in res["submissions"].items()}
     out["ranklists"] = res["ranklists"]
     out["window_scores"] = window_scores(model, cfg, ds, device)
-    if tp > 1:
+    if tp > 1 or multiscale:
         return out
 
     # the library: fresh seeded weights, so a whole-library run needs no training
@@ -338,6 +349,8 @@ def main(argv=None):
     ap.add_argument("--process_id", type=int)
     ap.add_argument("--timeout_s", type=float, default=distributed.TIMEOUT_S)
     ap.add_argument("--tp", type=int, default=1, help="train.tp_devices of the run")
+    ap.add_argument("--multiscale", action="store_true",
+                    help="train with train.multiscale, one epoch (run's `multiscale`)")
     ap.add_argument("--steps", type=int, default=0,
                     help="run this many train steps only (train_steps)")
     ap.add_argument("--config", help="--steps: a ConeConfig json in place of the width's")
@@ -355,7 +368,8 @@ def main(argv=None):
             out = train_steps(args.width, dev, args.steps, cfg, args.init,
                               args.out + ".state.pt")
         else:
-            out = run(args.width, dev, args.out + ".workdir", args.tp)   # shared workdir
+            out = run(args.width, dev, args.out + ".workdir", args.tp,   # shared workdir
+                      args.multiscale)
     finally:
         distributed.shutdown()
     with open(f"{args.out}.{out['rank']}.json", "w") as f:

@@ -20,6 +20,10 @@ tools/convert_ckpt.py --out), for both families (train/jax_workdir.py).
 Only the weights cross: the optax optimizer state and the lr schedule
 have no counterpart here, so a JAX workdir is evaluated, served or
 warm-started from, not resumed.
+A reference CONE checkpoint loads as it is, weights-only: its
+`{"model", "optimizer", "lr_scheduler", "epoch", "opt"}` (no "extra"), with
+`opt` the reference's argparse.Namespace (which holds a torch.device),
+through `load_model`, `load_params` and `CheckpointManager.restore`.
 Tags follow the reference's three flavours (cone/train.py:181-223): `best`
 on a stop-score improvement, `latest` at every eval, periodic `e{NNNN}`.
 `extra` carries the early-stop counters, so a resumed run does not re-arm
@@ -36,6 +40,7 @@ as a one-process run's at any tp.
 
 from __future__ import annotations
 
+import argparse
 import os
 from typing import Dict, Optional
 
@@ -60,8 +65,15 @@ def jax_checkpoint_path(workdir: str, tag: str) -> str:
     return os.path.join(workdir, f"model_{tag}.msgpack")
 
 
+# what a reference checkpoint pickles beyond tensors and containers: its
+# options (`opt`, cone/train.py:184-191), whose torch.device the
+# weights-only unpickler takes already; any other class is refused
+_SAFE_GLOBALS = [argparse.Namespace]
+
+
 def _read(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    with torch.serialization.safe_globals(_SAFE_GLOBALS):
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _load_weights(model: torch.nn.Module, raw) -> None:
@@ -145,16 +157,27 @@ class CheckpointManager:
         distributed.barrier(f"checkpoint {tag}")
         return path
 
-    def restore(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None):
+    def restore(self, tag: str, model: torch.nn.Module, optimizer=None, scheduler=None,
+                steps_per_epoch: Optional[int] = None):
         """Load model_<tag>.ckpt into `model` (and `optimizer`, `scheduler`
         where given and saved); returns (epoch, extra), extra {} for files
-        written without one."""
+        written without one (a reference checkpoint). The reference's
+        StepLR counts epochs where the port's schedule counts updates: its
+        state becomes the port's update count, which needs
+        `steps_per_epoch`."""
         raw = _read(checkpoint_path(self.workdir, tag))
         _load_weights(model, raw)
         if optimizer is not None and "optimizer" in raw:
             optimizer.load_state_dict(raw["optimizer"])
         if scheduler is not None and "lr_scheduler" in raw:
-            scheduler.load_state_dict(raw["lr_scheduler"])
+            state = raw["lr_scheduler"]
+            if "lr_lambdas" in state:   # the port's LambdaLR
+                scheduler.load_state_dict(state)
+            elif steps_per_epoch is None:
+                raise ValueError(f"model_{tag}.ckpt holds the reference's epoch-counted "
+                                 "StepLR: restore needs steps_per_epoch to resume it")
+            else:
+                scheduler.last_epoch = int(state["last_epoch"]) * steps_per_epoch
         return int(raw.get("epoch", 0)), {k: float(v) for k, v in raw.get("extra", {}).items()}
 
     def exists(self, tag: str) -> bool:

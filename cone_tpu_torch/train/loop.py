@@ -19,8 +19,11 @@ CONE runs at either model.compute_dtype (float32, or bfloat16 as the
 criterion, the gradient clip and AdamW stay float32, with no loss scaling,
 as in cone_tpu. `train.multiscale` takes the ECCV'22 multiscale loader
 (data/multiscale.py: 3 extra variable-length windows per example, batches
-of 4B motion rows), CONE-only and on one rank, as cone_tpu asserts
-single-host; the eval-loss pass keeps the standard loader.
+of 4B motion rows), CONE-only; on the ranks of one host at any (dp, tp),
+as cone_tpu's --mesh runs it over one host's devices, and refused across
+hosts (from the host names gathered at the rendezvous), as cone_tpu
+refuses it across processes. A dp rank takes its standard rows and their
+extra rows; the eval-loss pass keeps the standard loader.
 
 Tensor parallel (`train.tp_devices` = tp > 1, over a group of a multiple of
 tp ranks): the ranks form a (world / tp, tp) grid (parallel/mesh.py); each
@@ -246,24 +249,21 @@ def device_seconds(events) -> float:
     return total / 1e6
 
 
-def check_supported(cfg: ConeConfig, world: int = 1) -> None:
-    """Raise for a configuration the port cannot train on `world` ranks,
-    before any work. (A model.compute_dtype the model cannot run never gets
-    this far: ModelConfig refuses it when the config is made, --set
-    included.)"""
+def check_supported(cfg: ConeConfig, world: int = 1, hosts: int = 1) -> None:
+    """Raise for a configuration the port cannot train on `world` ranks over
+    `hosts` hosts, before any work. (A model.compute_dtype the model cannot
+    run never gets this far: ModelConfig refuses it when the config is made,
+    --set included.)"""
     if cfg.model.model_family == "tan":
         check_tan_geometry(cfg.tan, cfg.data.max_v_l)
     if cfg.train.multiscale and cfg.model.model_family == "tan":
         raise ValueError("train.multiscale is CONE-only")
-    if cfg.train.multiscale and cfg.train.tp_devices > 1:
+    if cfg.train.multiscale and hosts > 1:
+        # cone_tpu asserts a single process (cone_tpu/train/loop.py:266-276);
+        # its --mesh runs the recipe over one host's devices, as ranks do here
         raise ValueError(
-            f"train.multiscale runs on one rank, not with train.tp_devices="
-            f"{cfg.train.tp_devices}: its [standard; extra] batch layout cannot be "
-            "row-sliced across ranks")
-    if cfg.train.multiscale and world > 1:
-        raise ValueError(
-            f"train.multiscale runs on one rank, not {world}: its [standard; extra] batch "
-            "layout cannot be row-sliced across ranks")
+            f"train.multiscale runs on the ranks of one host, not on {hosts} hosts: "
+            "cone_tpu builds its [standard; extra] batches on one host")
     tp_size(cfg.train.tp_devices, world)
 
 
@@ -288,7 +288,7 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     generators are left as they were. A data-parallel run needs a workdir
     every rank shares."""
     rank, world = distributed.rank(), distributed.world_size()
-    check_supported(cfg, world)
+    check_supported(cfg, world, distributed.n_hosts())
     dev = resolve_device(device)
     # tp 1: the data-parallel group; tp > 1: the dp group of this rank's slot
     reduce, tensor = distributed.grid(cfg.train.tp_devices)
@@ -354,10 +354,12 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
         "resume state (a data-parallel run needs a workdir every rank shares)")
     if ckpt.exists("latest"):
         if tensor is None:
-            epoch, extra = ckpt.restore("latest", model, optimizer, scheduler)
+            epoch, extra = ckpt.restore("latest", model, optimizer, scheduler,
+                                        loader.steps_per_epoch())
         else:   # full tensors into the full model and an optimizer over it, then shard
             full_opt, _ = make_optimizer(model, cfg.train, loader.steps_per_epoch())
-            epoch, extra = ckpt.restore("latest", model, full_opt, scheduler)
+            epoch, extra = ckpt.restore("latest", model, full_opt, scheduler,
+                                        loader.steps_per_epoch())
             local.load_state_dict(shard_state_dict(model.state_dict(), layout, tensor.rank,
                                                    tensor.size))
             optimizer.load_state_dict(shard_optimizer_state(

@@ -12,7 +12,10 @@ update. The metrics a step returns are the global batch's. Dropout masks
 are drawn for the global batch from one generator seeded per step from
 (train.seed, global step), and each rank keeps its row block of them
 (models/dropout.py), so N ranks take the single run's steps with dropout
-on too.
+on too. A multiscale rank's batch is two blocks of the global one, its
+standard rows and their extra rows (`rank_row_blocks`): every criterion
+term holds per row, so the shares stay exact, and the adapter's InfoNCE
+gathers the standard rows alone.
 
 At model.compute_dtype bfloat16 the forwards compute in bfloat16 over the
 float32 parameters (models/transformer.py), so every gradient is float32;
@@ -30,7 +33,6 @@ from cone_tpu_torch.models.dropout import global_rows, step_seed
 from cone_tpu_torch.models.losses import compute_losses, loss_weight_dict, total_loss
 from cone_tpu_torch.ops.pooling import matching_embeds_gt
 from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce, clip_grad_norm_
-from cone_tpu_torch.parallel.mesh import row_block
 from cone_tpu_torch.train.optim import zero_missing_grads
 
 
@@ -43,6 +45,17 @@ def batch_to_device(batch: dict, device) -> dict:
             v = torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu" else v)
         out[k] = v.to(device, non_blocking=True)
     return out
+
+
+def rank_row_blocks(batch: dict, reduce: GroupReduce) -> tuple:
+    """This rank's (first row, count) blocks of the global batch's motion
+    rows: its standard rows (those with a query_cls) and, in a multiscale
+    batch, their extra rows after the global batch's standard rows
+    (data/multiscale.py: [standard x B ; extra x 3B])."""
+    std = len(batch["query_cls"])
+    extra = len(batch["query_tokens"]) - std
+    blocks = ((reduce.rank * std, std), (reduce.world * std + reduce.rank * extra, extra))
+    return tuple(b for b in blocks if b[1])
 
 
 def global_terms(losses: dict, reduce: GroupReduce) -> dict:
@@ -109,10 +122,9 @@ def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
     def train_step(batch: dict, adapter_on: bool = False) -> dict:
         model.train()
         batch = batch_to_device(batch, device)
-        rows = len(batch["query_tokens"])
-        lo, _ = row_block(rows * reduce.world, reduce.rank, reduce.world)
         gen.manual_seed(step_seed(cfg.train.seed, scheduler.last_epoch))
-        with global_rows(gen, rows * reduce.world, lo):
+        with global_rows(gen, len(batch["query_tokens"]) * reduce.world,
+                         rank_row_blocks(batch, reduce)):
             total, losses = loss_fn(batch, adapter_on)
         optimizer.zero_grad(set_to_none=True)
         total.backward()

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (coarse segment max, masked attention) on the
 card, each against its plain PyTorch version, the training step on the
 card (against the same step on the CPU, and the reference's golden
-trajectories; a multiscale step too; a bfloat16 forward and step), the
+trajectories; a multiscale step too, and two multiscale gloo ranks on the
+card against one process; a bfloat16 forward and step), the
 native .cfs reader built on the
 card's host, the 2D-TAN model's float32 guarantee and tie order on
 the card, and the feature towers (CLIP, EgoVLP) at full width on the card
@@ -611,6 +612,40 @@ def test_tp_gloo_ranks_on_the_card_equal_one_process(card, tmp_path, world):
         assert r["roundtrip_exact"] and r["metrics"] == ranks[0]["metrics"]
         assert r["shard_shapes"]["transformer.encoder.layers.0.self_attn.in_proj_weight"] == [
             96, 64]
+    for got, want in zip(ranks[0]["metrics"], single["metrics"]):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-5, err_msg=k)
+    state = torch.load(out + ".state.pt", weights_only=True)
+    for k, w in torch.load(out + ".single.pt", weights_only=True).items():
+        np.testing.assert_allclose(state[k].numpy(), w.numpy(), rtol=2e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("tp", [1, 2], ids=["dp2", "dp1_tp2"])
+def test_multiscale_gloo_ranks_on_the_card_equal_one_process(card, tmp_path, tp):
+    """train.multiscale on two gloo ranks sharing cuda:0 (data parallel: each
+    rank its standard rows and their extra rows; or dp 1 x tp 2), the narrow
+    width's 3 train steps at its dropouts (cone_tpu_torch/tools/dist_worker.py
+    --steps), against the same steps in this process: every metric and the
+    gathered weights within rtol 2e-4, atol 1e-5 (the DP and TP limits)."""
+    import dataclasses
+    import json
+    import os
+
+    from cone_tpu_torch.tools import dist_worker
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg, _ = dist_worker.problem("narrow")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, multiscale=True, tp_devices=tp))
+    cfg.save(str(tmp_path / "cfg.json"))
+    out = str(tmp_path / "out")
+    _tp_ranks(repo, out, ["--steps", "3", "--config", str(tmp_path / "cfg.json")])
+    single = dist_worker.train_steps("narrow", card, 3, cfg.replace(
+        train=dataclasses.replace(cfg.train, tp_devices=1)), state_path=out + ".single.pt")
+    ranks = [json.load(open(f"{out}.{i}.json")) for i in range(2)]
+    for r in ranks:
+        assert (r["backend"], r["device"], r["tp"], r["dp"]) == ("gloo", "cuda:0", tp, 2 // tp)
+        assert r["metrics"] == ranks[0]["metrics"] and "loss_adapter" in r["metrics"][0]
     for got, want in zip(ranks[0]["metrics"], single["metrics"]):
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-5, err_msg=k)

@@ -49,7 +49,7 @@ NEW_MODULES = [
     "cone_tpu_torch.extract.egovlp_video", "cone_tpu_torch.extract.text",
     "cone_tpu_torch.serve.predictor", "cone_tpu_torch.data.native_store",
     "cone_tpu_torch.data.multiscale", "cone_tpu_torch.data.reformat",
-    "cone_tpu_torch.train.jax_workdir"]
+    "cone_tpu_torch.train.jax_workdir", "cone_tpu_torch.tools.parity"]
 
 
 def _modules():
@@ -135,7 +135,8 @@ def test_default_device_is_the_card_and_raises_without_one():
                                    "golden_tan_train", "cli_train_mesh", "dist_initialize",
                                    "dist_worker", "clip_vision_tower", "clip_text_tower",
                                    "egovlp_tower", "predictor", "extract_clip_text",
-                                   "extract_egovlp_video", "cli_demo", "cli_extract_video"])
+                                   "extract_egovlp_video", "cli_demo", "cli_extract_video",
+                                   "parity"])
 def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -151,7 +152,7 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
     from cone_tpu_torch.config import TanConfig, tan_ego4d_config
     from cone_tpu_torch.eval.tan_pipeline import TanInferencePipeline
     from cone_tpu_torch.models.tan import ConeTanModel
-    from cone_tpu_torch.tools import dist_worker, golden_tan_train
+    from cone_tpu_torch.tools import dist_worker, golden_tan_train, parity
     from cone_tpu_torch.parallel import distributed
     from cone_tpu_torch.extract.egovlp_video import extract_egovlp_video
     from cone_tpu_torch.extract.text import extract_clip_text
@@ -213,6 +214,10 @@ def test_serving_entry_points_default_to_the_card(entry, tmp_path):
         "cli_extract_video": lambda: cli.main(["extract-video", "--videos", "v.mp4", "--out",
                                                str(tmp_path / "v.cfs"), "--backend", "egovlp",
                                                "--checkpoint", "e.pth"]),
+        # the chain's `infer` stage: the stores are linked, not read, before it
+        "parity": lambda: parity.main(["mad", str(tmp_path / "parity"), "gt.jsonl",
+                                       str(tmp_path / "model_best.ckpt"), "v.cfs", "t.cfs",
+                                       "c.cfs", "--src_format", "cfs"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -10,9 +10,12 @@ against cone_tpu's, on the CPU.
     converted weights: losses and grad norms within 1e-4 relative, weights
     within n_steps * lr absolute (tests/test_torch_train.py's
     test_train_step_equals_cone_tpu limits);
+  * a rank's row slice of a batch: its standard rows and their extra rows
+    of the whole batch;
   * `train` with train.multiscale: runs its epochs and evaluation on one
-    rank; refused on two ranks (the CLI before the rank joins, the loop
-    before the workdir exists) and for the 2D-TAN family.
+    rank; refused on ranks of two hosts (the CLI after the rendezvous, the
+    loop, both before the workdir exists) and for the 2D-TAN family
+    (tests/test_torch_multiscale_ranks.py runs it on several ranks).
 """
 
 import dataclasses
@@ -108,11 +111,25 @@ def test_batches_of_two_epochs_equal_cone_tpu(both):
 
 
 def test_whole_batches_only(both):
+    """Every rank builds the whole batch: a row slice lo:hi of it is the
+    standard rows lo:hi and their extra rows B + 3 lo : B + 3 hi of the
+    whole batch, key by key; an empty or outside slice is refused."""
     ds, _ = both
     loader = MultiscaleTrainLoader(ds, bsz=6, seed=1)
-    assert next(loader.epoch(0, 0, 6))["pos_motion"].shape[0] == 24
-    with pytest.raises(ValueError, match="whole batches"):
-        next(loader.epoch(0, 0, 3))
+    whole = list(loader.epoch(0))
+    assert [b["pos_motion"].shape[0] for b in loader.epoch(0, 0, 6)] == [24] * len(whole)
+    for lo, hi in ((0, 3), (3, 6), (2, 4)):
+        for part, batch in zip(loader.epoch(0, lo, hi), whole):
+            assert part.keys() == batch.keys()
+            for k, v in batch.items():
+                want = v[lo:hi] if len(v) == 6 else np.concatenate(
+                    [v[lo:hi], v[6 + 3 * lo: 6 + 3 * hi]])
+                np.testing.assert_array_equal(part[k], want, err_msg=k)
+            assert part["pos_motion"].shape[0] == 4 * (hi - lo)
+            assert part["query_cls"].shape[0] == hi - lo
+    for lo, hi in ((3, 3), (0, 7)):
+        with pytest.raises(ValueError, match="batch slice"):
+            next(loader.epoch(0, lo, hi))
 
 
 def test_two_multiscale_steps_equal_cone_tpu(both):
@@ -170,17 +187,26 @@ def test_train_runs_multiscale_epochs_and_evaluates(both, tmp_path):
 
 
 def test_multiscale_refuses_two_ranks_before_the_workdir(both, tmp_path, monkeypatch):
+    """Ranks on two hosts: `train --distributed` joins the group, reads the
+    host names gathered at the rendezvous (here a host list of two) and
+    refuses before the workdir exists, then leaves the group; `train` in
+    the loop refuses the same."""
     ds, _ = both
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(distributed, "_gather_hosts",
+                        lambda *a, **k: [("node-a", 0), ("node-b", 0)])
     argv = ["train", "--synthetic", "--device", "cpu", "--workdir", str(tmp_path / "cli"),
             "--set", "train.multiscale=true", "--distributed", "--coordinator",
-            "127.0.0.1:1", "--num_processes", "2"]
-    for rank in (0, 1):   # each rank refuses before it joins the group
-        with pytest.raises(ValueError, match="multiscale runs on one rank, not 2"):
-            cli.main(argv + ["--process_id", str(rank)])
+            f"127.0.0.1:{port}", "--num_processes", "1", "--process_id", "0"]
+    with pytest.raises(ValueError, match="ranks of one host, not on 2 hosts"):
+        cli.main(argv)
     assert not torch.distributed.is_initialized() and not os.path.exists(tmp_path / "cli")
-    monkeypatch.setattr(distributed, "rank", lambda: 0)
-    monkeypatch.setattr(distributed, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="multiscale runs on one rank, not 2"):
+    monkeypatch.setitem(distributed._ctrl, "hosts", [("node-a", 0), ("node-b", 0)])
+    with pytest.raises(ValueError, match="ranks of one host, not on 2 hosts"):
         loop.train(_train_cfg(), ds, ds, str(tmp_path / "run"), device="cpu")
     assert not os.path.exists(tmp_path / "run")
 

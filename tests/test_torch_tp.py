@@ -23,8 +23,8 @@ the CPU, its spec tests/test_tp.py.
     port-vs-cone_tpu limits (metrics 1e-4 relative, weights n_steps x lr);
   * `train --distributed --set train.tp_devices=2` over two ranks: train,
     eval, gathered checkpoint, resume at tp 1 and at tp 2;
-  * the refusals: a world tp does not divide, tp without --distributed,
-    multiscale with tp.
+  * the refusals: a world tp does not divide, tp without --distributed;
+    multiscale with tp taken on one host, refused across hosts.
 """
 
 import dataclasses
@@ -503,7 +503,8 @@ def test_cli_tp_equals_one_process_in_bfloat16(tmp_path):
 
 def test_refusals(tmp_path):
     """A world that tp does not divide, tp without --distributed (alone or
-    with --mesh), multiscale with tp: refused before any work."""
+    with --mesh): refused before any work; multiscale with tp: taken on one
+    host, refused on two."""
     cfg = _narrow(tp=2)
     with pytest.raises(ValueError, match="3 rank.* do not divide by train.tp_devices=2"):
         check_supported(cfg, 3)
@@ -513,8 +514,8 @@ def test_refusals(tmp_path):
         with pytest.raises(SystemExit, match="tp_devices=2 .* needs --distributed"):
             cli.main(_cli_argv(wd, 1) + ["--set", "train.tp_devices=2"] + extra)
     ms = cfg.replace(train=dataclasses.replace(cfg.train, multiscale=True))
-    for world in (2, 4):
-        with pytest.raises(ValueError, match="multiscale runs on one rank, not with "
-                                             "train.tp_devices=2"):
-            check_supported(ms, world)
+    for world in (2, 4):   # multiscale takes tp on one host
+        check_supported(ms, world)
+        with pytest.raises(ValueError, match="ranks of one host, not on 2 hosts"):
+            check_supported(ms, world, hosts=2)
     assert not os.path.exists(wd)

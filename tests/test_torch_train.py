@@ -507,12 +507,13 @@ def test_unported_training_options_raise(cfg, ds, tmp_path, monkeypatch, section
         with pytest.raises(ValueError, match="TAN geometry"):
             train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
     elif item == "item 14":
-        # the multiscale loader trains now (tests/test_torch_multiscale.py):
-        # what raises, before the workdir exists, is a group of more than one rank
+        # the multiscale loader trains now, on the ranks of one host too
+        # (tests/test_torch_multiscale_ranks.py): what raises, before the
+        # workdir exists, is ranks on more than one host
         from cone_tpu_torch.parallel import distributed
 
-        monkeypatch.setattr(distributed, "world_size", lambda: 2)
-        with pytest.raises(ValueError, match="multiscale runs on one rank, not 2"):
+        monkeypatch.setitem(distributed._ctrl, "hosts", [("node-a", 0), ("node-b", 0)])
+        with pytest.raises(ValueError, match="ranks of one host, not on 2 hosts"):
             train(bad, ds, ds, str(tmp_path / "run"), device="cpu")
     else:
         # tensor parallelism trains now (tests/test_torch_tp.py): what raises,
