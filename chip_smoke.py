@@ -104,7 +104,16 @@ Phases, each of which raises (exit code != 0) on failure:
  15. train.multiscale on the ranks of one host (multiscale_ranks_phase): dp 2
      and dp 1 x tp 2 gloo ranks sharing the card, `train` at the Ego4D preset
      (bsz 32, 2 steps, one eval epoch), against one process;
- 16. one JSON line with every kernel's summary, then {"ok": true, "device": ...}.
+ 16. utils/perf.py on the card (perf_phase): device_time_fused (CUDA events
+     around back-to-back passes of pre-staged dispatches) and perf_report
+     of the main path (Ego4D, float32), ego4d_scratch, mad and mad_scratch;
+     tan_perf_report of tan_ego4d and of tan_mad at full width (one
+     36 864-frame movie x 8 queries, 240 windows a dispatch, 2 queries held
+     against the CPU port); train_perf_report of the Ego4D and
+     ego4d_scratch steps on the host clock and on device time; every MFU
+     and device-memory share in (0, 1.05];
+ 17. one JSON line with the phases' numbers (`perf` among them), one with
+     every kernel's summary, then {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the cone_tpu package.
 """
@@ -655,6 +664,8 @@ def training_phase(card, device="cuda"):
         meas["profiled_epoch_wall_s"] = history[0]["profile_wall_s"]
         meas["profiled_epoch_busy_share"] = (history[0]["profile_device_s"]
                                              / history[0]["profile_wall_s"])
+        meas["profiled_epoch_device_ms_per_step"] = (history[0]["profile_device_s"]
+                                                     / len(history[0]["step_times"]) * 1e3)
     print(f"train at Ego4D width (hidden {cfg.model.hidden_dim}, {cfg.model.nheads} heads, "
           f"{cfg.model.enc_layers}+{cfg.model.dec_layers} layers, FFN "
           f"{cfg.model.dim_feedforward}), bsz 32, {n_videos} videos x {qpv} queries: 3 epochs "
@@ -858,7 +869,8 @@ def tan_inference_phase(card, device="cuda"):
     a dispatch, 2 dispatches a run (the cut is in queries: about 40 TFLOP a
     dispatch). Checks: one coarse launch per dispatch, well-formed moments,
     kernel-on vs kernel-off ranklists (near-tie flips counted), fused vs
-    staged within the parity limits. Returns (measurements, launches)."""
+    staged within the parity limits. Returns (measurements, launches, the
+    pipeline, which the perf phase times again)."""
     import numpy as np
     import torch
 
@@ -956,13 +968,12 @@ def tan_inference_phase(card, device="cuda"):
           f"fused vs staged device postproc: max span err {worst[0]:.2e} (<= {SPAN_ATOL}), max "
           f"score err {worst[1]:.2e} (<= {SCORE_ATOL}); host postproc agrees on {host_same} of "
           f"{3 * n_q} (query, modality) rows", flush=True)
-    del pipe, model
     torch.cuda.empty_cache()
     return dict(first_run_s=first_s, warm_run_s=walls, profiled_wall_s=prof_wall,
                 device_s=busy, conv_device_s=conv_s, conv_share=conv_s / busy if busy else None,
                 lstm_device_s=ops.get("aten::_cudnn_rnn", 0.0), windows_per_run=windows,
                 dispatches=dispatches, near_tie_flips=flips, fused_vs_staged=worst,
-                host_rows_agreeing=host_same, rows=3 * n_q), launches
+                host_rows_agreeing=host_same, rows=3 * n_q), launches, pipe
 
 
 def tan_training_phase(card, device="cuda"):
@@ -2701,7 +2712,9 @@ def scratch_phase(card, ds, standard_step_ms):
     synthetic 2-hour movie (36 864 frames, 512-d) and 32 queries through
     the coarse kernel at its MAD record shape (B 1, Q 32, L 36 864, D 512,
     stride 62), then 30 windows a query of 145 tokens: device time and
-    queries/s. Returns (measurements, coarse launches by run)."""
+    queries/s. Returns (measurements, coarse launches by run, {name:
+    (pipeline, queries, warm queries/s)} of ego4d_scratch, mad and
+    mad_scratch, which the perf phase times again)."""
     import copy as copy_mod
 
     import numpy as np
@@ -2817,11 +2830,14 @@ def scratch_phase(card, ds, standard_step_ms):
               f"scratch card vs CPU moments, {m}: {a}")
 
     n_q = len(ds.examples)
-    runs = {}
+    runs, kept = {}, {}
     for name, cfg in variants.items():
         m = m_card if name == "ego4d_scratch_bf16_2h" else seeded(cfg, device, sd)
-        runs[name] = timed_runs(InferencePipeline(m, ds, cfg, device=device), n_q)
-        del m
+        vpipe = InferencePipeline(m, ds, cfg, device=device)
+        runs[name] = timed_runs(vpipe, n_q)
+        if name == "ego4d_scratch_bf16_2h":
+            kept["ego4d_scratch_bf16"] = (vpipe, n_q, runs[name]["queries_per_s"])
+        del m, vpipe
     meas["inference"] = runs
     for name, r in runs.items():
         print(f"scratch (a): {name}: warm fused runs {[round(w, 4) for w in r['wall_s']]} s -> "
@@ -2996,7 +3012,6 @@ def scratch_phase(card, ds, standard_step_ms):
                                  ctx_l_range=(SCRATCH_MAD_FRAMES, SCRATCH_MAD_FRAMES + 1),
                                  dim=mcfg.model.v_appear_feat_dim, signal=3.0, seed=2)
     msd = load_reference_state_dict(random_reference_state_dict(mcfg.model, seed=0))
-    mpipe = None
     mruns = {}
     for name, cfg in mvariants.items():
         mpipe = InferencePipeline(seeded(cfg, device, msd), mds, cfg, device=device)
@@ -3014,6 +3029,7 @@ def scratch_phase(card, ds, standard_step_ms):
                            tokens=cfg.data.max_v_l + cfg.model.max_q_l,
                            windows_per_query=cfg.data.topk_window,
                            **timed_runs(mpipe, 32))
+        kept[name.rsplit("_", 1)[0]] = (mpipe, 32, mruns[name]["queries_per_s"])
     meas["mad"] = mruns
     for name, r in mruns.items():
         print(f"scratch (d): {name}: coarse at {r['coarse_shape']}, then "
@@ -3025,7 +3041,190 @@ def scratch_phase(card, ds, standard_step_ms):
     torch.cuda.empty_cache()
     meas["phase_s"] = time.time() - t_phase
     print(f"scratch phase {meas['phase_s']:.1f} s", flush=True)
-    return meas, launches
+    return meas, launches, kept
+
+
+PERF_MAX = 1.05          # an MFU or device-memory share past this is a fault of a count or a clock
+PERF_REPEATS = 5         # timed passes of a CONE fused run (device_time_fused)
+TAN_PERF_REPEATS = 2     # ... of a TAN fused run: about 3 s a pass at tan_ego4d
+TAN_MAD_QUERIES, TAN_MAD_CPU_QUERIES = 8, 2   # one query chunk on the card; 2 held on the CPU
+
+
+def _share(label, key, value):
+    check(0 < value <= PERF_MAX, f"perf {label}: {key} {value} outside (0, {PERF_MAX}]")
+
+
+def _timed_fused(pipe, n_q, repeats, label):
+    """utils/perf.device_time_fused over `pipe`, the coarse kernel's
+    launches counted: one per dispatch of the warm pass and of each timed
+    one. Returns (s a query, s a pass, the padded length the dispatches
+    ran at, dispatches a pass, launches)."""
+    from cone_tpu_torch.ops import coarse as co
+    from cone_tpu_torch.utils import perf
+
+    pads = [inputs[0].shape[1] for _, inputs in pipe._fused_groups()]
+    check(len(set(pads)) == 1, f"perf {label}: dispatches at padded lengths {sorted(set(pads))}")
+    co.coarse_segment_max.launches = 0
+    per_q, per_pass = perf.device_time_fused(pipe, n_q, repeats=repeats)
+    n = co.coarse_segment_max.launches
+    check(n == len(pads) * (repeats + 1),
+          f"perf {label}: {n} coarse launches for {len(pads)} dispatches x {repeats + 1} passes")
+    return per_q, per_pass, pads[0], len(pads), n
+
+
+def tan_mad_run(card):
+    """tan_mad at its full width on the card: seeded reference-layout weights
+    (512-d CLIP features and tokens, 64 clips at frame stride 2, a 3-layer
+    LSTM of 256, four 9x9 map convs of 256 channels, topk_window 30), one
+    synthetic 2-hour movie of 36 864 frames (padded to max_ctx_l 65 536)
+    and 8 queries at query_chunk 8: one dispatch of 240 windows, the coarse
+    kernel at stride 64. The moments of 2 of the queries against the CPU
+    port (query_chunk 2): ranklists exact up to counted near-tie flips,
+    spans SPAN_ATOL, scores SCORE_ATOL, all three modalities. Returns (the
+    pipeline, measurements, coarse launches of the checked run)."""
+    import copy as copy_mod
+
+    import numpy as np
+    import torch
+
+    from cone_tpu_torch.config import tan_mad_config
+    from cone_tpu_torch.convert import load_reference_tan_state_dict, random_reference_tan_state_dict
+    from cone_tpu_torch.data.synthetic import make_synthetic_dataset
+    from cone_tpu_torch.eval.pipeline import make_pipeline
+    from cone_tpu_torch.models.tan import ConeTanModel
+    from cone_tpu_torch.ops import coarse as co
+
+    cfg = tan_mad_config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dset_name="synthetic"),
+                      eval=dataclasses.replace(cfg.eval, query_chunk=TAN_MAD_QUERIES,
+                                               use_pallas_coarse=True))
+    t0 = time.time()
+    ds = make_synthetic_dataset(cfg.data, n_videos=1, queries_per_video=TAN_MAD_QUERIES,
+                                ctx_l_range=(SCRATCH_MAD_FRAMES, SCRATCH_MAD_FRAMES + 1),
+                                dim=cfg.model.v_appear_feat_dim, signal=3.0, seed=3)
+    sd = load_reference_tan_state_dict(random_reference_tan_state_dict(cfg.tan, seed=0))
+    model = ConeTanModel(cfg.tan, device="cuda")
+    model.load_state_dict(sd)
+    pipe = make_pipeline(model, ds, cfg, device="cuda")
+    setup_s = time.time() - t0
+    co.coarse_segment_max.launches = 0
+    t1 = time.time()
+    subs, ranklists = pipe.run(host_postproc=False, fused=True)
+    torch.cuda.synchronize()
+    first_s = time.time() - t1
+    launches = co.coarse_segment_max.launches
+    check(launches == 1, f"tan_mad: {launches} coarse launches for 1 dispatch")
+    well_formed_runs(subs, TAN_MAD_QUERIES, cfg.eval.max_after_nms, "tan_mad")
+
+    sub = copy_mod.copy(ds)
+    sub.examples = ds.examples[:TAN_MAD_CPU_QUERIES]
+    cpu_cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, query_chunk=TAN_MAD_CPU_QUERIES))
+    m_cpu = ConeTanModel(cfg.tan, device="cpu")
+    m_cpu.load_state_dict(sd)
+    pipe_cpu = make_pipeline(m_cpu, sub, cpu_cfg, device="cpu")
+    t1 = time.time()
+    subs_cpu, rank_cpu = pipe_cpu.run(host_postproc=False, fused=True)
+    cpu_s = time.time() - t1
+    same, flips = near_tie_flips(pipe_cpu, sub, {q: ranklists[q] for q in rank_cpu}, rank_cpu)
+    worst = [0.0, 0.0]
+    for m in ("fusion", "proposal", "matching"):
+        got = {r["query_id"]: np.asarray(r["predicted_times"], np.float64) for r in subs[m]}
+        for r in subs_cpu[m]:
+            want, g = np.asarray(r["predicted_times"], np.float64), got[r["query_id"]]
+            check(g.shape == want.shape, f"tan_mad {m} {r['query_id']}: card {g.shape} vs CPU "
+                                         f"{want.shape}")
+            worst = [max(worst[0], float(np.abs(g[:, :2] - want[:, :2]).max())),
+                     max(worst[1], float(np.abs(g[:, 2] - want[:, 2]).max()))]
+    print(f"perf (e): tan_mad full width (hidden {cfg.tan.hidden_size}, LSTM "
+          f"{cfg.tan.lstm_layers}x{cfg.tan.txt_hidden_size} over {cfg.tan.t_feat_dim}-d tokens, "
+          f"{cfg.tan.num_clips} clips at frame stride {cfg.tan.frame_stride}, map convs "
+          f"{cfg.tan.map_kernel_sizes} x {cfg.tan.map_hidden_sizes}, topk_window "
+          f"{cfg.data.topk_window}, coarse stride {pipe.stride}), one movie of "
+          f"{SCRATCH_MAD_FRAMES} frames x {TAN_MAD_QUERIES} queries, set-up "
+          f"{setup_s:.1f} s; first fused run {first_s:.3f} s, {launches} "
+          f"coarse launch; {TAN_MAD_CPU_QUERIES} queries on the CPU port ({cpu_s:.1f} s): "
+          f"ranklists {same}/{len(rank_cpu)} identical, {flips} near-tie flips; moments card vs "
+          f"CPU, 3 modalities: max span err {worst[0]:.2e} (<= {SPAN_ATOL}), max score err "
+          f"{worst[1]:.2e} (<= {SCORE_ATOL}) [{card}]", flush=True)
+    check(worst[0] <= SPAN_ATOL and worst[1] <= SCORE_ATOL,
+          f"tan_mad card vs CPU: span err {worst[0]}, score err {worst[1]}")
+    del pipe_cpu, m_cpu
+    return pipe, dict(first_run_s=first_s, cpu_s=cpu_s, cpu_queries=len(rank_cpu),
+                      cpu_ranklists_identical=same, cpu_ranklist_flips=flips,
+                      card_vs_cpu=worst), launches
+
+
+def perf_phase(card, cone_runs, tan_pipe, train_times):
+    """utils/perf.py on the card: device time of every main path's fused
+    run, and its MFU and device-memory share against the card's peaks.
+    cone_runs: {label: (pipeline, queries, warm wall queries/s)} of the
+    main path (Ego4D, float32), ego4d_scratch (bfloat16), mad and
+    mad_scratch (the scratch phase's 36 864-frame movie); tan_pipe: the TAN
+    phase's tan_ego4d pipeline; train_times: {label: (config, warm step ms
+    on the host clock, device ms a step of a profiled epoch)}.
+    (a)-(c) device_time_fused (PERF_REPEATS passes) and perf_report at the
+    padded length the dispatches ran at; (d) tan_ego4d and (e) tan_mad at
+    full width (tan_mad_run), TAN_PERF_REPEATS passes, tan_perf_report;
+    (f) train_perf_report on each step time. Every share must lie in
+    (0, PERF_MAX]. Returns (measurements, coarse launches by path)."""
+    import torch
+
+    from cone_tpu_torch.utils import perf
+
+    t_phase = time.time()
+    out, launches = {"card": card}, {}
+    for label, (pipe, n_q, wall_qps) in cone_runs.items():
+        per_q, per_pass, ctx_pad, n_disp, n = _timed_fused(pipe, n_q, PERF_REPEATS, label)
+        launches[f"perf_{label}"] = n
+        rep = perf.perf_report(pipe.cfg, ctx_pad, n_q, per_q, wall_qps)
+        _share(label, "mfu", rep["mfu"])
+        _share(label, "hbm_util", rep["hbm_util"])
+        out[label] = dict(rep, device_ms_per_pass=per_pass * 1e3, ctx_pad=ctx_pad,
+                          queries=n_q, dispatches=n_disp, repeats=PERF_REPEATS)
+        print(f"perf: {label} ({pipe.cfg.model.compute_dtype}), {n_q} queries in {n_disp} "
+              f"dispatches at ctx_pad {ctx_pad}: device {per_pass * 1e3:.3f} ms a pass "
+              f"({PERF_REPEATS} passes, CUDA events) -> device_qps {rep['device_qps']}, wall_qps "
+              f"{rep['wall_qps']}; {rep['flops_per_query'] / 1e9:.3f} GFLOP and "
+              f"{rep['bytes_per_query'] / 1e6:.3f} MB a query -> mfu {rep['mfu']}, hbm_util "
+              f"{rep['hbm_util']} [{card}]", flush=True)
+
+    tan_runs = {"tan_ego4d": (tan_pipe, len(tan_pipe.ds.examples), 0)}
+    tan_mad_pipe, out["tan_mad_check"], tan_mad_launches = tan_mad_run(card)
+    tan_runs["tan_mad"] = (tan_mad_pipe, TAN_MAD_QUERIES, tan_mad_launches)
+    for label, (pipe, n_q, before) in tan_runs.items():
+        per_q, per_pass, ctx_pad, n_disp, n = _timed_fused(pipe, n_q, TAN_PERF_REPEATS, label)
+        launches[f"perf_{label}"] = before + n
+        rep = perf.tan_perf_report(pipe.cfg, per_q)
+        _share(label, "tan_mfu", rep["tan_mfu"])
+        windows = n_disp * pipe.cfg.eval.query_chunk * pipe.cfg.data.topk_window
+        out[label] = dict(rep, device_s_per_pass=per_pass, ctx_pad=ctx_pad, queries=n_q,
+                          dispatches=n_disp, windows_per_pass=windows,
+                          repeats=TAN_PERF_REPEATS)
+        print(f"perf: {label}, {n_q} queries in {n_disp} dispatches of "
+              f"{windows // n_disp} windows at ctx_pad {ctx_pad}: device {per_pass:.4f} s a pass "
+              f"({TAN_PERF_REPEATS} passes, CUDA events) -> tan_device_qps "
+              f"{rep['tan_device_qps']}; {rep['tan_flops_per_query'] / 1e12:.4f} TFLOP a query "
+              f"(map convs {rep['tan_map_conv_frac']}) -> tan_mfu {rep['tan_mfu']} of the "
+              f"float32 peak [{card}]", flush=True)
+    del tan_runs, tan_mad_pipe
+    torch.cuda.empty_cache()
+
+    for label, (cfg, host_ms, device_ms) in train_times.items():
+        bsz = cfg.train.bsz
+        reps = {"host_clock": perf.train_perf_report(cfg, bsz / (host_ms / 1e3)),
+                "device_time": perf.train_perf_report(cfg, bsz / (device_ms / 1e3))}
+        for clock, rep in reps.items():
+            _share(f"{label} {clock}", "train_mfu", rep["train_mfu"])
+        out[label] = dict(reps, host_step_ms=host_ms, device_step_ms=device_ms, bsz=bsz)
+        print(f"perf: {label} ({cfg.model.compute_dtype}), bsz {bsz}, "
+              f"{reps['host_clock']['flops_per_sample'] / 1e9:.3f} GFLOP a sample: on the host "
+              f"clock's warm step {host_ms:.2f} ms, {reps['host_clock']['train_samples_per_sec']} "
+              f"samples/s -> train_mfu {reps['host_clock']['train_mfu']}; on the profiled epoch's "
+              f"{device_ms:.2f} device ms a step, {reps['device_time']['train_samples_per_sec']} "
+              f"samples/s -> train_mfu {reps['device_time']['train_mfu']} [{card}]", flush=True)
+    out["phase_s"] = time.time() - t_phase
+    print(f"perf phase {out['phase_s']:.1f} s", flush=True)
+    return out, launches
 
 
 def _self_device_us(evt):
@@ -3199,6 +3398,9 @@ def main():
         coarse_case("ego4d-tan-q8", 1, 8, 2304, 256, 32, [2241], peaks, 500, gen),
         coarse_case("ego4d-tan", 1, 32, 2304, 256, 32, [2241], peaks, 500, gen),
         coarse_case("tan-mad", 1, 32, 36864, 512, 64, [36000], peaks, 100, gen),
+        # the perf phase's tan_mad run: one 36 864-frame movie padded to
+        # max_ctx_l, a chunk of 8 queries
+        coarse_case("tan-mad-q8", 1, 8, 65536, 512, 64, [36864], peaks, 100, gen),
         coarse_case("tan-video-batch-ctx-on-segment", 2, 32, 2304, 256, 32, [2304, 2240],
                     peaks, 0, gen),
         coarse_case("tan-run-ends-at-ctx-on-tile", 1, 32, 1024, 512, 64, [448], peaks, 0, gen, 7),
@@ -3207,7 +3409,7 @@ def main():
     ]
     main_case, mad_case = cases[0], cases[2]
     tan_cases = {c["label"]: c for c in cases if c["label"] in ("ego4d-tan-q8", "ego4d-tan",
-                                                                  "tan-mad")}
+                                                                  "tan-mad", "tan-mad-q8")}
     check({c["ntw"] for c in cases} == {1, 2, 4, 8, 16},
           f"coarse cases reached instances {sorted({c['ntw'] for c in cases})}, want all five")
     print(f"coarse_segment_max: {len(cases)} cases, {sum(c['window_flips'] for c in cases)} "
@@ -3293,7 +3495,7 @@ def main():
 
     # 8. the 2D-TAN family: goldens, inference and training at tan_ego4d width
     tan = tan_goldens()
-    tan["inference"], tan_launches = tan_inference_phase(smi)
+    tan["inference"], tan_launches, tan_pipe = tan_inference_phase(smi)
     tan["training"], tan_train_launches = tan_training_phase(smi)
 
     # 9. data parallelism
@@ -3310,7 +3512,8 @@ def main():
     data, data_launches = data_phase(smi, training["warm_step_ms_median"], reader_build_s)
 
     # 12. bfloat16 compute: the ego4d_scratch and mad_scratch presets
-    scratch, scratch_launches = scratch_phase(smi, ds, training["warm_step_ms_median"])
+    scratch, scratch_launches, scratch_runs = scratch_phase(smi, ds,
+                                                            training["warm_step_ms_median"])
 
     # 13. tensor parallelism
     tp, tp_launches = tp_phase(smi, single)
@@ -3320,6 +3523,22 @@ def main():
 
     # 15. train.multiscale on the ranks of one host
     ms_ranks, ms_launches = multiscale_ranks_phase(smi)
+
+    # 16. utils/perf.py: device time, MFU and device-memory share of every main path
+    from cone_tpu_torch.config import ego4d_scratch_config
+
+    check("profiled_epoch_device_ms_per_step" in training
+          and "profiled_epoch_device_ms_per_step" in scratch["train"],
+          "a training run recorded no profiled device time")
+    perf_meas, perf_launches = perf_phase(
+        smi, {"ego4d_fp32": (pipe, n_q, n_q / float(np.median(walls))), **scratch_runs},
+        tan_pipe,
+        {"train_ego4d_fp32": (ego4d_config(), training["warm_step_ms_median"],
+                              training["profiled_epoch_device_ms_per_step"]),
+         "train_ego4d_scratch_bf16": (ego4d_scratch_config(),
+                                      scratch["train"]["warm_step_ms_median"],
+                                      scratch["train"]["profiled_epoch_device_ms_per_step"])})
+    del scratch_runs, tan_pipe
 
     if args.profile:
         profile_breakdown(pipe, n_q)
@@ -3332,12 +3551,14 @@ def main():
         launches=(launches + train_launches + tan_launches + tan_train_launches
                   + sum(par_launches.values()) + demo_launches + sum(data_launches.values())
                   + sum(scratch_launches.values()) + sum(tp_launches.values())
-                  + sum(runbook_launches.values()) + sum(ms_launches.values())),
+                  + sum(runbook_launches.values()) + sum(ms_launches.values())
+                  + sum(perf_launches.values())),
         launches_by_path={"inference": launches, "train_eval": train_launches,
                           "tan_inference": tan_launches, "tan_train_eval": tan_train_launches,
                           **{f"parallel_{k}": v for k, v in par_launches.items()},
                           "demo": demo_launches, **data_launches, **scratch_launches,
-                          **tp_launches, **runbook_launches, **ms_launches},
+                          **tp_launches, **runbook_launches, **ms_launches,
+                          **perf_launches},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         window_flips=sum(c["window_flips"] for c in cases),
         shape="ego4d: B 1, Q 32, L 2304, D 256, stride 45",
@@ -3362,7 +3583,7 @@ def main():
     print(json.dumps({"serving_latency_ms": serving, "training": training, "tan": tan,
                       "parallel": parallel, "towers": towers, "data": data,
                       "scratch": scratch, "tp": tp, "runbook": runbook,
-                      "multiscale_ranks": ms_ranks, "card": smi}))
+                      "multiscale_ranks": ms_ranks, "perf": perf_meas, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -440,15 +440,13 @@ class CorpusRetriever:
 
         # stage 4: reference-semantics post-processing, per query
         rows: List[List[list]] = [[] for _ in range(nq)]
-        for (cid, grp, _), (spans_sec, prob, match, *rest) in zip(fine_pend, fine_res):
-            # a fine stage with empty candidate slots (2D-TAN's within-window
-            # NMS) marks them in a 4th output; they are no candidates
-            cand_valid = rest[0] if rest else None
+        # a fine stage with empty candidate slots (2D-TAN's within-window NMS)
+        # marks them in a 4th output, cand_valid; cone_tpu's retriever ignores
+        # the mark, so the suppressed cells in those slots stay candidates here
+        for (cid, grp, _), (spans_sec, prob, match, *_) in zip(fine_pend, fine_res):
             for j, (qi, wins) in enumerate(grp):
                 for w in range(len(wins)):
                     for p in range(prob.shape[2]):
-                        if cand_valid is not None and not cand_valid[j, w, p]:
-                            continue
                         rows[qi].append(
                             [cid, float(f"{spans_sec[j, w, p, 0]:.4f}"),
                              float(f"{spans_sec[j, w, p, 1]:.4f}"),

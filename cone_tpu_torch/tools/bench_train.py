@@ -14,24 +14,23 @@ to the device beforehand, so the loader is out of the measurement:
      the AdamW update with the lr schedule;
   3. torch.profiler over --steps steps: device time per step and its share
      of the wall, kernel launches per step, and the ops with the most host
-     time and the kernels with the most device time.
+     time and the kernels with the most device time;
+  4. utils/perf.train_perf_report on the pre-staged step time: FLOPs a
+     sample, samples/s and the MFU against the card's peak for the preset's
+     compute dtype.
 Ends with one JSON line of the numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import time
 
 import numpy as np
 import torch
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
@@ -44,9 +43,11 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
     from cone_tpu_torch.train.optim import make_optimizer
     from cone_tpu_torch.train.step import batch_to_device, make_train_step, to_floats
     from cone_tpu_torch.utils.device import resolve_device
+    from cone_tpu_torch.utils.perf import device_fence, train_perf_report
 
     dev = resolve_device(device)
     cfg = ego4d_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, bsz=bsz))
     ds = make_synthetic_dataset(cfg.data, n_videos=8, queries_per_video=max(4, bsz // 2),
                                 ctx_l_range=(1500, 2305), dim=cfg.model.v_appear_feat_dim,
                                 signal=3.0, seed=seed)
@@ -64,7 +65,7 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
 
     for i in range(3):  # warm: allocator, cuBLAS handles, AdamW state
         to_floats(step(batch(i), True))
-    _sync(dev)
+    device_fence(dev)
 
     walls = []
     for i in range(steps):
@@ -98,25 +99,25 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
         neg["vid_mask"] = b["neg_mask"]
         pos["adapter_embeds"] = matching_embeds_gt(
             model.adapt, b["query_cls"], b["pos_appear"], b["prop_start"], b["prop_end"])
-        _sync(dev)
+        device_fence(dev)
         t1 = time.perf_counter()
         losses = compute_losses(pos, {"span_labels": b["span_labels"],
                                       "span_mask": b["span_mask"],
                                       "saliency_pos": b["sal_pos"],
                                       "saliency_neg": b["sal_neg"]}, neg, cfg.loss)
         total = total_loss(losses, weights)
-        _sync(dev)
+        device_fence(dev)
         t2 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         total.backward()
-        _sync(dev)
+        device_fence(dev)
         t3 = time.perf_counter()
         torch.nn.utils.clip_grad_norm_(params, cfg.train.grad_clip)
-        _sync(dev)
+        device_fence(dev)
         t4 = time.perf_counter()
         opt.step()
         sched.step()
-        _sync(dev)
+        device_fence(dev)
         t5 = time.perf_counter()
         for k, a, z in zip(phases, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
             phases[k].append(z - a)
@@ -128,7 +129,7 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
         t0 = time.perf_counter()
         for i in range(steps):
             to_floats(step(batch(i), True))
-        _sync(dev)
+        device_fence(dev)
         prof_wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     dev_evts = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
@@ -143,8 +144,9 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
     top_host = sorted((e for e in avgs if e.key.startswith("aten::")),
                       key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     top_dev = sorted(dev_evts, key=dev_us, reverse=True)[:12]
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     out = {
-        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "device": name,
         "bsz": bsz, "steps": steps,
         "step_ms_median": float(np.median(walls)) * 1e3,
         "step_ms_min": float(np.min(walls)) * 1e3,
@@ -159,6 +161,9 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
         "top_device_kernels": [(e.key[:90], e.count // steps, round(dev_us(e) / steps / 1e3, 3))
                                for e in top_dev],
     }
+    if dev.type == "cuda":
+        # the MFU needs the card's peaks: a CPU run has none to divide by
+        out["perf"] = train_perf_report(cfg, bsz / float(np.median(walls)), chip=name)
     return out
 
 
@@ -178,6 +183,11 @@ def main(argv=None):
           f"{res['device_ms_per_step']:.2f} ms device per step (busy share "
           f"{res['busy_share']:.3f}), {res['kernel_launches_per_step']:.0f} kernel launches "
           f"per step")
+    if "perf" in res:
+        rep = res["perf"]
+        print(f"train MFU on the pre-staged step: {rep['train_mfu']:.4f} "
+              f"({rep['flops_per_sample'] / 1e9:.3f} GFLOP a sample, "
+              f"{rep['train_samples_per_sec']} samples/s, {rep['chip']})")
     for name, rows in (("host time by op", res["top_host_ops"]),
                        ("device time by kernel", res["top_device_kernels"])):
         print(f"{name} (name, calls per step, ms per step):")

@@ -6,7 +6,8 @@ card against one process; a bfloat16 forward and step), the
 native .cfs reader built on the
 card's host, the 2D-TAN model's float32 guarantee and tie order on
 the card, and the feature towers (CLIP, EgoVLP) at full width on the card
-against the CPU, with the golden EgoVLP tower. Marked `cuda`: without a card every test here skips. The file
+against the CPU, with the golden EgoVLP tower, and utils/perf.py's fused
+device time and MFU. Marked `cuda`: without a card every test here skips. The file
 imports neither jax nor cone_tpu, so it runs on a machine with PyTorch
 alone, without the JAX-side conftest:
 
@@ -727,3 +728,37 @@ def test_egovlp_tower_on_the_card(card):
         size=(1, 4, 3, 224, 224)).astype(np.float32))
     with torch.inference_mode():
         _close_to_cpu(ego(clip.to(card)), ego_cpu(clip))
+
+
+def test_device_time_fused_and_mfu_on_the_card(card):
+    """utils/perf.py on the card at a narrow width (hidden 64, 64-d
+    features), 2 videos x 32 queries through the coarse kernel: the CUDA
+    events give a positive time a query, the kernel launches once per
+    dispatch of every pass (one warm pass and `repeats` timed ones), and
+    perf_report's MFU and device-memory share lie in (0, 1]."""
+    from cone_tpu_torch.config import ConeConfig, DataConfig, EvalConfig, ModelConfig
+    from cone_tpu_torch.convert import load_reference_state_dict, random_reference_state_dict
+    from cone_tpu_torch.data import make_synthetic_dataset
+    from cone_tpu_torch.eval.pipeline import InferencePipeline
+    from cone_tpu_torch.models.cone import ConeModel
+    from cone_tpu_torch.utils import perf
+
+    dim = 64
+    cfg = ConeConfig(
+        model=ModelConfig(hidden_dim=64, nheads=4, dim_feedforward=128, t_feat_dim=dim,
+                          v_motion_feat_dim=dim, v_appear_feat_dim=dim),
+        data=DataConfig(dset_name="synthetic", max_ctx_l=2304),
+        eval=EvalConfig(query_chunk=32, use_pallas_coarse=True))
+    model = ConeModel(cfg.model, device=card)
+    model.load_state_dict(load_reference_state_dict(random_reference_state_dict(cfg.model, 0)))
+    ds = make_synthetic_dataset(cfg.data, n_videos=2, queries_per_video=32,
+                                ctx_l_range=(2000, 2300), dim=dim, seed=0)
+    pipe = InferencePipeline(model, ds, cfg, device=card)
+    repeats = 3
+    co.coarse_segment_max.launches = 0
+    per_q, per_pass = perf.device_time_fused(pipe, len(ds.examples), repeats=repeats)
+    assert co.coarse_segment_max.launches == 2 * (repeats + 1)
+    assert 0 < per_q and per_pass == pytest.approx(per_q * len(ds.examples))
+    rep = perf.perf_report(cfg, cfg.data.max_ctx_l, len(ds.examples), per_q, 1.0)
+    assert rep["chip"] == torch.cuda.get_device_name()
+    assert 0 < rep["mfu"] <= 1 and 0 < rep["hbm_util"] <= 1, rep

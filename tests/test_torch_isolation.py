@@ -49,7 +49,8 @@ NEW_MODULES = [
     "cone_tpu_torch.extract.egovlp_video", "cone_tpu_torch.extract.text",
     "cone_tpu_torch.serve.predictor", "cone_tpu_torch.data.native_store",
     "cone_tpu_torch.data.multiscale", "cone_tpu_torch.data.reformat",
-    "cone_tpu_torch.train.jax_workdir", "cone_tpu_torch.tools.parity"]
+    "cone_tpu_torch.train.jax_workdir", "cone_tpu_torch.tools.parity",
+    "cone_tpu_torch.utils.perf"]
 
 
 def _modules():

@@ -255,16 +255,16 @@ def test_corpus_retriever_matches_cone_tpu(setups):
 
 @pytest.mark.parametrize("top_p", [5, 40], ids=["every_slot_filled", "empty_slots"])
 def test_retriever_cand_valid_divergence_is_pinned(monkeypatch, top_p):
-    """ROADMAP Queue 3, held on purpose. The within-window NMS keeps at most
-    proposal_top_k cells a window; a slot it cannot fill holds a cell it
-    suppressed, marked invalid (cand_valid), in both packages. cone_tpu's
-    CorpusRetriever ignores the mark, so those suppressed cells enter the
-    min-max fusion and the per-video NMS as candidates; the port's drops
-    them, as both packages' pipelines do, since a suppressed cell is no
-    candidate of 2D-TAN's within-window NMS (TEST.USE_NMS_WITHIN_WINDOW).
-    At top_p 5 every slot is filled and the two retrievers agree; at 40 (a
-    32-clip map keeps fewer survivors) they answer differently, and the
-    port made to ignore the mark answers as cone_tpu does, to the limits."""
+    """The port's CorpusRetriever answers as cone_tpu's at proposal_top_k 5
+    and 40, to the spans and scores limits. (The name is kept from when the
+    two retrievers answered apart, ROADMAP Queue 3 "Repaired".) The
+    within-window NMS keeps at most proposal_top_k cells a window; a slot it
+    cannot fill holds a cell it suppressed, marked invalid (cand_valid), in
+    both packages. cone_tpu's retriever ignores the mark, so those cells
+    enter the min-max fusion and the per-video NMS as candidates, and the
+    port's does the same. At top_p 5 every slot is filled; at 40 (a 32-clip
+    map keeps fewer survivors) some slots are empty, so the case exercises
+    the mark."""
     from cone_tpu_torch.eval import tan_pipeline
 
     cfg = _cfg()
@@ -278,35 +278,28 @@ def test_retriever_cand_valid_divergence_is_pinned(monkeypatch, top_p):
     queries = [ds.query_features(ex.query_id) for ex in ds.examples[:2]]
     nms, slots = tan_pipeline.within_window_nms, []
 
-    def search(retriever, mark_all_valid=False):
-        def counted(*a):
-            spans, prob, valid = nms(*a)
-            slots.append((int(valid.sum()), valid.numel()))
-            return spans, prob, torch.ones_like(valid) if mark_all_valid else valid
-        monkeypatch.setattr(tan_pipeline, "within_window_nms", counted)
-        for cid in ds.video_ids:
-            retriever.add_video(cid, ds.video_features(cid)[0])
-        return retriever.search_batch([q[0] for q in queries], np.stack([q[1] for q in queries]))
+    def counted(*a):
+        spans, prob, valid = nms(*a)
+        slots.append((int(valid.sum()), valid.numel()))
+        return spans, prob, valid
 
-    def same(got, want):
-        return all([m["video_id"] for m in g] == [m["video_id"] for m in w]
-                   and np.allclose([m["span"] for m in g], [m["span"] for m in w],
-                                   atol=SPAN_ATOL)
-                   and np.allclose([m["fused"] for m in g], [m["fused"] for m in w],
-                                   atol=SCORE_ATOL)
-                   for g, w in zip(got, want))
-
+    monkeypatch.setattr(tan_pipeline, "within_window_nms", counted)
+    t = CorpusRetriever(model, cfg, device="cpu")
     j = JCorpusRetriever(JConeTanModel(jcfg.tan), tan_params_to_jax(sd, cfg.tan), jcfg)
     for cid in ds.video_ids:
+        t.add_video(cid, ds.video_features(cid)[0])
         j.add_video(cid, ds.video_features(cid)[0])
+    got = t.search_batch([q[0] for q in queries], np.stack([q[1] for q in queries]))
     want = j.search_batch([q[0] for q in queries], np.stack([q[1] for q in queries]))
-    got = search(CorpusRetriever(model, cfg, device="cpu"))
     empty = sum(n - v for v, n in slots)
-    if top_p == 5:
-        assert empty == 0 and same(got, want)
-        return
-    assert empty > 0 and not same(got, want)
-    assert same(search(CorpusRetriever(model, cfg, device="cpu"), mark_all_valid=True), want)
+    assert (empty == 0) if top_p == 5 else (empty > 0)
+    for g_rows, w_rows in zip(got, want):
+        assert g_rows and [m["video_id"] for m in g_rows] == [m["video_id"] for m in w_rows]
+        np.testing.assert_allclose([m["span"] for m in g_rows], [m["span"] for m in w_rows],
+                                   atol=SPAN_ATOL)
+        np.testing.assert_allclose([[m["prop"], m["match"], m["fused"]] for m in g_rows],
+                                   [[m["prop"], m["match"], m["fused"]] for m in w_rows],
+                                   atol=SCORE_ATOL)
 
 
 def test_moment_service_serves_a_tan_model(setups):
