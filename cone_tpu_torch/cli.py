@@ -625,7 +625,8 @@ def main(argv=None):
                    help="smoke mode: 3 batches per epoch, one query chunk per eval"
                         " (the reference's --debug, cone/config.py:27-28)")
     t.add_argument("--profile", action="store_true",
-                   help="torch.profiler trace of the first epoch into <workdir>/profile")
+                   help="torch.profiler trace of the first epoch into <workdir>/profile:"
+                        " every thread, with the program's cone.* spans (utils/trace.py)")
     t.add_argument("--init_ckpt",
                    help="weights-only warm start from a reference-named torch file or a"
                         " JAX checkpoint (.msgpack: a workdir's model_<tag>.msgpack or"

@@ -6,6 +6,8 @@ from __future__ import annotations
 import queue
 import threading
 
+from cone_tpu_torch.utils.trace import span
+
 _SENTINEL = object()
 
 
@@ -43,7 +45,8 @@ def prefetch_iterator(iterable, depth: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]

@@ -43,6 +43,7 @@ from cone_tpu_torch.ops.windows import (
 )
 from cone_tpu_torch.utils.device import resolve_device
 from cone_tpu_torch.utils.io import min_max_normalize
+from cone_tpu_torch.utils.trace import span
 
 MODALITIES = ("fusion", "proposal", "matching")
 
@@ -171,26 +172,36 @@ class InferencePipeline:
         return (sec.reshape(b, qc, k, nq, 2), prob_fg.reshape(b, qc, k, nq),
                 matching.reshape(b, qc, k, nq))
 
+    @span("fused")
     def _fused(self, appear, a_scale, motion, m_scale, ctx, toks, tmask, cls):
         """The whole path for a group of (video, query-chunk) items: decode
         -> adapter -> coarse ranking -> top-K gather -> fine forward ->
-        4-dp rounding -> min-max fusion -> dedup -> NMS of the three
-        modalities stacked on one batch; a fine stage's cand_valid masks
-        its empty slots. Returns (order, win_valid,
-        kept_spans (3, B, Qc, K, 2), kept_scores (3, B, Qc, K),
-        kept_valid (3, B, Qc, K))."""
+        `_post` (4-dp rounding, min-max fusion, dedup, NMS). Returns
+        (order, win_valid, kept_spans (3, B, Qc, K, 2),
+        kept_scores (3, B, Qc, K), kept_valid (3, B, Qc, K))."""
         cfg = self.cfg
         same = motion is appear
         appear = self._decode(appear, a_scale)
         motion = appear if same else self._decode(motion, m_scale)
-        adapted = self._adapt(appear)
-        order, n_valid = self._coarse(adapted, ctx, cls)
+        with span("fused.adapt"):
+            adapted = self._adapt(appear)
+        with span("fused.coarse"):
+            order, n_valid = self._coarse(adapted, ctx, cls)
         win_idx = order[..., : cfg.data.topk_window]
         win_valid = win_idx < n_valid[..., None]  # ranked ids < n_win
         win_idx = torch.where(win_valid, win_idx, 0)
-        spans_sec, prob, match, *rest = self._fine(appear, motion, ctx, win_idx, toks,
-                                                   tmask, cls)
-        cand_valid = rest[0] if rest else None
+        with span("fused.fine"):
+            spans_sec, prob, match, *rest = self._fine(appear, motion, ctx, win_idx, toks,
+                                                       tmask, cls)
+        return (order, win_valid,
+                *self._post(win_valid, spans_sec, prob, match, rest[0] if rest else None))
+
+    @span("fused.post")
+    def _post(self, win_valid, spans_sec, prob, match, cand_valid):
+        """The fine stage's candidates -> the kept moments of the three
+        modalities stacked on one batch: 4-dp rounding, min-max fusion,
+        dedup, NMS; a fine stage's cand_valid masks its empty slots."""
+        cfg = self.cfg
         b, qc, k, p = prob.shape
         if not cfg.eval.no_sort_results:
             # the host candidate order: fg-prob descending within each window
@@ -209,12 +220,11 @@ class InferencePipeline:
         ma = round4_device(match.reshape(b, qc, k * p))
         fused = _minmax(pr, valid) + _minmax(ma, valid)
         (fused, pr, ma), valid = dedup_spans_device(sp, (fused, pr, ma), valid)
-        k_sp, k_sc, k_va = temporal_nms_device(
+        return temporal_nms_device(
             sp.expand(3, *sp.shape), torch.stack([fused, pr, ma]),
             valid.expand(3, *valid.shape), cfg.eval.nms_thd,
             cfg.eval.max_after_nms, hull_union=self.nms_hull,
             max_before_nms=cfg.eval.max_before_nms)
-        return order, win_valid, k_sp, k_sc, k_va
 
     def _device_post(self, spans_sec, prop, match, valid):
         """Batched device fusion + dedup + NMS on host-rounded candidates
@@ -324,12 +334,17 @@ class InferencePipeline:
         pending = []
         for group, inputs in prefetch_iterator(self._fused_groups(), depth=2):
             pending.append((group, self._fused(*inputs)))
-        results = _fetch([res for _, res in pending])
+        with span("pipeline.fetch"):
+            results = _fetch([res for _, res in pending])
+        return self._assemble([group for group, _ in pending], results)
 
+    @span("pipeline.assemble")
+    def _assemble(self, groups, results):
+        """The fetched outputs of every dispatch -> (moments of each
+        modality, ranklists), per query."""
         ranklists = {}
         out = {name: [] for name in MODALITIES}
-        for (group, _), res in zip(pending, results):
-            order, _, k_sp, k_sc, k_va = res
+        for group, (order, _, k_sp, k_sc, k_va) in zip(groups, results):
             for v, (chunk, n_win, _) in enumerate(group):
                 for j, ex in enumerate(chunk):
                     ranklists[ex.query_id] = [int(w) for w in order[v, j] if w < n_win]
@@ -381,33 +396,40 @@ class InferencePipeline:
             groups = [work[g : g + vb] for g in range(0, len(work), vb)]
 
         for group in groups:
-            stacked = group + [group[0]] * (vb - len(group))
-            key = tuple(c for _, _, c in stacked)
-            ent = self._stack_cache.pop(key, None) if self.stack_cache else None
-            if ent is None:
-                vids = [self._device_video(c) for _, _, c in stacked]
-                appear = torch.stack([v[0] for v in vids])
-                a_scale = None if vids[0][1] is None else torch.stack([v[1] for v in vids])
-                if all(v[2] is v[0] for v in vids):
-                    motion, m_scale = appear, a_scale
-                else:
-                    motion = torch.stack([v[2] for v in vids])
-                    m_scale = None if vids[0][3] is None else torch.stack([v[3] for v in vids])
-                ctx = self._to_device(np.asarray([v[4] for v in vids], np.int32))
-                hit = (appear, a_scale, motion, m_scale, ctx)
-                nbytes = sum(t.numel() * t.element_size()
-                             for t in {id(t): t for t in hit if t is not None}.values())
-                ent = (hit, nbytes)
-            if self.stack_cache:
-                self._stack_cache[key] = ent  # re-insert = LRU touch
-                total = sum(n for _, n in self._stack_cache.values())
-                while total > self.stack_cache_bytes and len(self._stack_cache) > 1:
-                    total -= self._stack_cache.pop(next(iter(self._stack_cache)))[1]
-            qs = [self._chunk_queries(chunk if i < len(group) else [])
-                  for i, (chunk, _, _) in enumerate(stacked)]
-            toks, tmask, clss = (self._to_device(np.stack([q[i] for q in qs]))
-                                 for i in range(3))
-            yield group, (*ent[0], toks, tmask, clss)
+            yield group, self._stage(group, vb)
+
+    @span("pipeline.stage")
+    def _stage(self, group, vb):
+        """One group's device inputs (`_fused_groups`): the stacked videos,
+        from the stack cache or stacked anew, and its query chunks packed
+        and copied to the device."""
+        stacked = group + [group[0]] * (vb - len(group))
+        key = tuple(c for _, _, c in stacked)
+        ent = self._stack_cache.pop(key, None) if self.stack_cache else None
+        if ent is None:
+            vids = [self._device_video(c) for _, _, c in stacked]
+            appear = torch.stack([v[0] for v in vids])
+            a_scale = None if vids[0][1] is None else torch.stack([v[1] for v in vids])
+            if all(v[2] is v[0] for v in vids):
+                motion, m_scale = appear, a_scale
+            else:
+                motion = torch.stack([v[2] for v in vids])
+                m_scale = None if vids[0][3] is None else torch.stack([v[3] for v in vids])
+            ctx = self._to_device(np.asarray([v[4] for v in vids], np.int32))
+            hit = (appear, a_scale, motion, m_scale, ctx)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in {id(t): t for t in hit if t is not None}.values())
+            ent = (hit, nbytes)
+        if self.stack_cache:
+            self._stack_cache[key] = ent  # re-insert = LRU touch
+            total = sum(n for _, n in self._stack_cache.values())
+            while total > self.stack_cache_bytes and len(self._stack_cache) > 1:
+                total -= self._stack_cache.pop(next(iter(self._stack_cache)))[1]
+        qs = [self._chunk_queries(chunk if i < len(group) else [])
+              for i, (chunk, _, _) in enumerate(stacked)]
+        toks, tmask, clss = (self._to_device(np.stack([q[i] for q in qs]))
+                             for i in range(3))
+        return (*ent[0], toks, tmask, clss)
 
     @torch.inference_mode()
     def coarse(self) -> Dict[str, List[int]]:

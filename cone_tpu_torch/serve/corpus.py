@@ -53,6 +53,7 @@ from cone_tpu_torch.ops.nms import temporal_nms_host
 from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
 from cone_tpu_torch.parallel import distributed
 from cone_tpu_torch.utils.io import l2_normalize, min_max_normalize
+from cone_tpu_torch.utils.trace import span
 
 
 class CorpusRetriever:
@@ -275,6 +276,7 @@ class CorpusRetriever:
         raise KeyError(clip_id)
 
     @torch.inference_mode()
+    @span("corpus.scan")
     def _coarse_all(self, cls_feats: np.ndarray):
         """(video_id, ctx_l, (Q, n_w) window scores) for every resident
         video: ONE pass per ctx bucket over the stacked corpus for the
@@ -344,121 +346,124 @@ class CorpusRetriever:
         scored = self._coarse_all(clss)
 
         # stage 2: per-query global top-k (video, window) merge, vectorized
-        cols_scores, col_cid, col_w = [], [], []
-        for cid, ctx_l, scores in scored:  # scores: (Q, n_w_padded)
-            n_win = num_windows(ctx_l, self.pipe.stride)
-            cols_scores.append(np.asarray(scores[:, :n_win]))
-            col_cid.extend([cid] * n_win)
-            col_w.extend(range(n_win))
-        S = (np.concatenate(cols_scores, axis=1) if cols_scores
-             else np.zeros((nq, 0), np.float32))  # (Q, W_total)
-        col_w = np.asarray(col_w)
-        col_cid_arr = np.asarray(col_cid)
-        kth = min(k, S.shape[1])
-        # deterministic top-k under the (score desc, video, window) TOTAL
-        # order: coarse scores tie exactly whenever 50%-overlapping windows
-        # share their segment-max frame, so an argpartition-only cut would
-        # pick arbitrary tie members, and a sharded library would disagree
-        # with the whole one. argpartition to a 4x margin first (tie groups
-        # are about 2-3 wide), then lexsort just the margin. The local top-k
-        # holds this rank's part of the global one; the ranks' triples merge
-        # under the same order.
-        payload = []
-        for qi in range(nq):
-            if kth:
-                m = min(S.shape[1], max(4 * kth, kth + 64))
-                part = (np.argpartition(-S[qi], m - 1)[:m]
-                        if m < S.shape[1] else np.arange(S.shape[1]))
-                order = part[np.lexsort(
-                    (col_w[part], col_cid_arr[part], -S[qi, part]))]
-                sel = order[:kth]
-            else:
-                sel = np.zeros(0, np.int64)
-            payload.append([(float(S[qi, c]), col_cid[c], int(col_w[c])) for c in sel])
-        gathered = distributed.all_gather_obj(payload)
-        mine = set(self.clip_ids)
-        chosen: List[Dict[str, List[int]]] = [dict() for _ in range(nq)]
-        for qi in range(nq):
-            merged = sorted((t for g in gathered for t in g[qi]),
-                            key=lambda t: (-t[0], t[1], t[2]))[:k]
-            if adaptive_margin is not None and merged:
-                # per-query adaptive budget: drop windows whose coarse score
-                # trails the query's best by more than the margin, so the
-                # fine stage scales with how concentrated the coarse signal
-                # is. The fusion min-max then normalizes over the surviving
-                # candidate set: an intentional difference from the
-                # fixed-budget reference scheme, opt-in per request.
-                floor = merged[0][0] - adaptive_margin
-                merged = [t for t in merged if t[0] >= floor]
-            for _, cid, w in merged:
-                if cid in mine:
-                    chosen[qi].setdefault(cid, []).append(int(w))
+        with span("corpus.merge"):
+            cols_scores, col_cid, col_w = [], [], []
+            for cid, ctx_l, scores in scored:  # scores: (Q, n_w_padded)
+                n_win = num_windows(ctx_l, self.pipe.stride)
+                cols_scores.append(np.asarray(scores[:, :n_win]))
+                col_cid.extend([cid] * n_win)
+                col_w.extend(range(n_win))
+            S = (np.concatenate(cols_scores, axis=1) if cols_scores
+                 else np.zeros((nq, 0), np.float32))  # (Q, W_total)
+            col_w = np.asarray(col_w)
+            col_cid_arr = np.asarray(col_cid)
+            kth = min(k, S.shape[1])
+            # deterministic top-k under the (score desc, video, window) TOTAL
+            # order: coarse scores tie exactly whenever 50%-overlapping windows
+            # share their segment-max frame, so an argpartition-only cut would
+            # pick arbitrary tie members, and a sharded library would disagree
+            # with the whole one. argpartition to a 4x margin first (tie groups
+            # are about 2-3 wide), then lexsort just the margin. The local top-k
+            # holds this rank's part of the global one; the ranks' triples merge
+            # under the same order.
+            payload = []
+            for qi in range(nq):
+                if kth:
+                    m = min(S.shape[1], max(4 * kth, kth + 64))
+                    part = (np.argpartition(-S[qi], m - 1)[:m]
+                            if m < S.shape[1] else np.arange(S.shape[1]))
+                    order = part[np.lexsort(
+                        (col_w[part], col_cid_arr[part], -S[qi, part]))]
+                    sel = order[:kth]
+                else:
+                    sel = np.zeros(0, np.int64)
+                payload.append([(float(S[qi, c]), col_cid[c], int(col_w[c])) for c in sel])
+            gathered = distributed.all_gather_obj(payload)
+            mine = set(self.clip_ids)
+            chosen: List[Dict[str, List[int]]] = [dict() for _ in range(nq)]
+            for qi in range(nq):
+                merged = sorted((t for g in gathered for t in g[qi]),
+                                key=lambda t: (-t[0], t[1], t[2]))[:k]
+                if adaptive_margin is not None and merged:
+                    # per-query adaptive budget: drop windows whose coarse score
+                    # trails the query's best by more than the margin, so the
+                    # fine stage scales with how concentrated the coarse signal
+                    # is. The fusion min-max then normalizes over the surviving
+                    # candidate set: an intentional difference from the
+                    # fixed-budget reference scheme, opt-in per request.
+                    floor = merged[0][0] - adaptive_margin
+                    merged = [t for t in merged if t[0] >= floor]
+                for _, cid, w in merged:
+                    if cid in mine:
+                        chosen[qi].setdefault(cid, []).append(int(w))
 
         # stage 3: fine. Queries that shortlisted the same movie batch into
         # one forward (fine_chunk lanes); everything is launched before the
         # one transfer to the host
-        toks_np = np.zeros((nq, self.cfg.data.max_q_l,
-                            self.cfg.model.t_feat_dim), np.float32)
-        tmask_np = np.zeros((nq, self.cfg.data.max_q_l), np.float32)
-        for qi, tok in enumerate(token_feats_list):
-            n_tok = min(len(tok), self.cfg.data.max_q_l)
-            toks_np[qi, :n_tok] = tok[:n_tok]
-            tmask_np[qi, :n_tok] = 1
+        with span("corpus.fine"):
+            toks_np = np.zeros((nq, self.cfg.data.max_q_l,
+                                self.cfg.model.t_feat_dim), np.float32)
+            tmask_np = np.zeros((nq, self.cfg.data.max_q_l), np.float32)
+            for qi, tok in enumerate(token_feats_list):
+                n_tok = min(len(tok), self.cfg.data.max_q_l)
+                toks_np[qi, :n_tok] = tok[:n_tok]
+                tmask_np[qi, :n_tok] = 1
 
-        # a (query, video) pair whose shortlist exceeds the fine forward's
-        # window axis (kk lanes) dispatches as multiple rows, so the full
-        # `search_windows` budget is honored even when the coarse signal
-        # concentrates every window in one movie
-        by_movie: Dict[str, List[tuple]] = {}
-        for qi, ch in enumerate(chosen):
-            for cid, wins in ch.items():
-                for s in range(0, len(wins), kk):
-                    by_movie.setdefault(cid, []).append((qi, wins[s : s + kk]))
-        pipe = self.pipe
-        fine_pend = []
-        for cid, lst in by_movie.items():
-            appear, a_scale, motion, m_scale, ctx_l = self._video_arrays(cid)
-            # the pipeline's fine forward carries a leading video axis
-            ap = pipe._decode(appear, a_scale)[None]
-            mo = ap if motion is appear else pipe._decode(motion, m_scale)[None]
-            ctx = pipe._to_device(np.asarray([ctx_l], np.int32))
-            for i in range(0, len(lst), fc):
-                grp = lst[i : i + fc]
-                win_idx = np.zeros((fc, kk), np.int64)
-                toks = np.zeros((fc,) + toks_np.shape[1:], np.float32)
-                tmask = np.zeros((fc,) + tmask_np.shape[1:], np.float32)
-                cls_rows = np.zeros((fc, clss.shape[1]), np.float32)
-                cls_rows[:, 0] = 1.0  # pad rows: unit vector, no 0/0
-                for j, (qi, wins) in enumerate(grp):
-                    win_idx[j, : len(wins)] = wins[:kk]
-                    toks[j], tmask[j] = toks_np[qi], tmask_np[qi]
-                    cls_rows[j] = clss[qi]
-                got = pipe._fine(ap, mo, ctx, *(pipe._to_device(x[None]) for x in
-                                                (win_idx, toks, tmask, cls_rows)))
-                fine_pend.append((cid, grp, tuple(x[0] for x in got)))
-        fine_res = _fetch([f[2] for f in fine_pend])
+            # a (query, video) pair whose shortlist exceeds the fine forward's
+            # window axis (kk lanes) dispatches as multiple rows, so the full
+            # `search_windows` budget is honored even when the coarse signal
+            # concentrates every window in one movie
+            by_movie: Dict[str, List[tuple]] = {}
+            for qi, ch in enumerate(chosen):
+                for cid, wins in ch.items():
+                    for s in range(0, len(wins), kk):
+                        by_movie.setdefault(cid, []).append((qi, wins[s : s + kk]))
+            pipe = self.pipe
+            fine_pend = []
+            for cid, lst in by_movie.items():
+                appear, a_scale, motion, m_scale, ctx_l = self._video_arrays(cid)
+                # the pipeline's fine forward carries a leading video axis
+                ap = pipe._decode(appear, a_scale)[None]
+                mo = ap if motion is appear else pipe._decode(motion, m_scale)[None]
+                ctx = pipe._to_device(np.asarray([ctx_l], np.int32))
+                for i in range(0, len(lst), fc):
+                    grp = lst[i : i + fc]
+                    win_idx = np.zeros((fc, kk), np.int64)
+                    toks = np.zeros((fc,) + toks_np.shape[1:], np.float32)
+                    tmask = np.zeros((fc,) + tmask_np.shape[1:], np.float32)
+                    cls_rows = np.zeros((fc, clss.shape[1]), np.float32)
+                    cls_rows[:, 0] = 1.0  # pad rows: unit vector, no 0/0
+                    for j, (qi, wins) in enumerate(grp):
+                        win_idx[j, : len(wins)] = wins[:kk]
+                        toks[j], tmask[j] = toks_np[qi], tmask_np[qi]
+                        cls_rows[j] = clss[qi]
+                    got = pipe._fine(ap, mo, ctx, *(pipe._to_device(x[None]) for x in
+                                                    (win_idx, toks, tmask, cls_rows)))
+                    fine_pend.append((cid, grp, tuple(x[0] for x in got)))
+            fine_res = _fetch([f[2] for f in fine_pend])
 
         # stage 4: reference-semantics post-processing, per query
-        rows: List[List[list]] = [[] for _ in range(nq)]
-        # a fine stage with empty candidate slots (2D-TAN's within-window NMS)
-        # marks them in a 4th output, cand_valid; cone_tpu's retriever ignores
-        # the mark, so the suppressed cells in those slots stay candidates here
-        for (cid, grp, _), (spans_sec, prob, match, *_) in zip(fine_pend, fine_res):
-            for j, (qi, wins) in enumerate(grp):
-                for w in range(len(wins)):
-                    for p in range(prob.shape[2]):
-                        rows[qi].append(
-                            [cid, float(f"{spans_sec[j, w, p, 0]:.4f}"),
-                             float(f"{spans_sec[j, w, p, 1]:.4f}"),
-                             float(f"{prob[j, w, p]:.4f}"),
-                             float(f"{match[j, w, p]:.4f}")])
-        # the min-max fusion must see the query's corpus-wide candidate set
-        parts = distributed.all_gather_obj(rows)
-        rows = [[r for g in parts for r in g[qi]] for qi in range(nq)]
-        return [
-            self._postprocess(rows[qi], queries[qi], top_moments)
-            for qi in range(nq)
-        ]
+        with span("corpus.post"):
+            rows: List[List[list]] = [[] for _ in range(nq)]
+            # a fine stage with empty candidate slots (2D-TAN's within-window NMS)
+            # marks them in a 4th output, cand_valid; cone_tpu's retriever ignores
+            # the mark, so the suppressed cells in those slots stay candidates here
+            for (cid, grp, _), (spans_sec, prob, match, *_) in zip(fine_pend, fine_res):
+                for j, (qi, wins) in enumerate(grp):
+                    for w in range(len(wins)):
+                        for p in range(prob.shape[2]):
+                            rows[qi].append(
+                                [cid, float(f"{spans_sec[j, w, p, 0]:.4f}"),
+                                 float(f"{spans_sec[j, w, p, 1]:.4f}"),
+                                 float(f"{prob[j, w, p]:.4f}"),
+                                 float(f"{match[j, w, p]:.4f}")])
+            # the min-max fusion must see the query's corpus-wide candidate set
+            parts = distributed.all_gather_obj(rows)
+            rows = [[r for g in parts for r in g[qi]] for qi in range(nq)]
+            return [
+                self._postprocess(rows[qi], queries[qi], top_moments)
+                for qi in range(nq)
+            ]
 
     def _postprocess(self, rows, query: str, top_moments: int) -> List[Dict]:
         """Min-max fusion over one query's corpus-wide candidate set, NMS

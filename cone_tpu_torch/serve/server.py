@@ -12,7 +12,8 @@ search_batch do), never once at construction.
 
 Endpoints (all JSON):
   GET  /healthz    {"ok", "backend", "videos"}
-  GET  /stats      request counters, per-endpoint mean latency, corpus size
+  GET  /stats      request counters, per-endpoint mean latency and mean
+                   wait for the device lock (mean_queue_s), corpus size
   POST /add_video  {"clip_id", "features": [[...]], "motion_features"?}
   POST /append_video {"clip_id", "features", "motion_features"?}
                    (streaming ingest: grow a resident video's timeline)
@@ -54,6 +55,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 from cone_tpu_torch.utils.device import resolve_device
+from cone_tpu_torch.utils.trace import span
 
 
 class _MicroBatcher:
@@ -84,11 +86,13 @@ class _MicroBatcher:
 
     def submit(self, tok, cls, query, search_windows, top_moments,
                adaptive_margin):
-        done = threading.Event()
-        slot: dict = {}
-        self._q.put((tok, cls, query,
-                     (search_windows, top_moments, adaptive_margin),
-                     done, slot))
+        done, locked = threading.Event(), threading.Event()
+        slot: dict = {"since": time.time(), "locked": locked}
+        with span("serve.queue"):
+            self._q.put((tok, cls, query,
+                         (search_windows, top_moments, adaptive_margin),
+                         done, slot))
+            locked.wait()
         done.wait()
         if "error" in slot:
             raise slot["error"]
@@ -115,23 +119,27 @@ class _MicroBatcher:
             except Exception as e:  # unhashable options - endpoint coercion
                 for *_, done, slot in batch:  # makes this unreachable, but a
                     slot["error"] = e         # dead batcher thread would hang
-                    done.set()                # every later /search forever
+                    slot["locked"].set()      # every later /search forever
+                    done.set()
                 continue
             for (sw, tm, am), items in by_opts.items():
                 svc = self.service
+                slots = [it[5] for it in items]
                 try:
-                    with svc._device_lock:
-                        results = svc._timed(
-                            "search",
-                            lambda: svc.retriever.search_batch(
-                                [it[0] for it in items],
-                                np.stack([it[1] for it in items]),
-                                queries=[it[2] for it in items],
-                                search_windows=sw, top_moments=tm,
-                                adaptive_margin=am))
+                    results = svc._locked(
+                        "search",
+                        lambda: svc.retriever.search_batch(
+                            [it[0] for it in items],
+                            np.stack([it[1] for it in items]),
+                            queries=[it[2] for it in items],
+                            search_windows=sw, top_moments=tm,
+                            adaptive_margin=am),
+                        since=sum(s["since"] for s in slots) / len(slots),
+                        waiting=[s["locked"] for s in slots])
                 except Exception as e:  # propagate to every waiter
                     for *_, done, slot in items:
                         slot["error"] = e
+                        slot["locked"].set()
                         done.set()
                 else:
                     self.batches += 1
@@ -181,6 +189,7 @@ class MomentService:
         self._device_lock = threading.Lock()
         self._counts = defaultdict(int)
         self._lat_sum = defaultdict(float)
+        self._queue_sum = defaultdict(float)
         self.batcher = (_MicroBatcher(self, batch_window_ms / 1e3, max_batch)
                         if batch_window_ms > 0 else None)
 
@@ -208,13 +217,30 @@ class MomentService:
         tok, cls = self.text_encoder(payload["query"])
         return np.asarray(tok, np.float32), np.asarray(cls, np.float32)
 
-    def _timed(self, name: str, fn):
-        t0 = time.time()
+    def _locked(self, name: str, fn, since=None, waiting=()):
+        """fn() under the device lock, counted and timed as endpoint `name`
+        (span `serve.<name>`); its queue is the wait from `since` (default:
+        now) to taking the lock, and each event of `waiting` is set once
+        the lock is taken."""
+        if since is None:
+            since = time.time()
+            with span("serve.queue"):
+                self._device_lock.acquire()
+        else:  # the requests' own threads keep serve.queue open until `waiting` is set
+            self._device_lock.acquire()
         try:
-            return fn()
+            t0 = time.time()
+            self._queue_sum[name] += t0 - since
+            for ev in waiting:
+                ev.set()
+            try:
+                with span("serve." + name):
+                    return fn()
+            finally:
+                self._counts[name] += 1
+                self._lat_sum[name] += time.time() - t0
         finally:
-            self._counts[name] += 1
-            self._lat_sum[name] += time.time() - t0
+            self._device_lock.release()
 
     # ---------------------------------------------------------- endpoints
 
@@ -225,12 +251,14 @@ class MomentService:
     def stats(self) -> dict:
         lat = {k: round(self._lat_sum[k] / max(self._counts[k], 1), 4)
                for k in self._counts}
+        queue = {k: round(self._queue_sum[k] / max(self._counts[k], 1), 4)
+                 for k in self._counts}
         clips = sum(
             len(self.retriever.pipe.ds._vid_cache[c][0])
             for c in self.retriever.clip_ids
             if c in self.retriever.pipe.ds._vid_cache
         )
-        out = {"requests": dict(self._counts), "mean_latency_s": lat,
+        out = {"requests": dict(self._counts), "mean_latency_s": lat, "mean_queue_s": queue,
                "videos": len(self.retriever.clip_ids), "total_clips": clips}
         if self.batcher is not None:
             b = self.batcher
@@ -243,9 +271,8 @@ class MomentService:
         feats = np.asarray(payload["features"], np.float32)
         motion = payload.get("motion_features")
         motion = None if motion is None else np.asarray(motion, np.float32)
-        with self._device_lock:
-            self._timed("add_video", lambda: self.retriever.add_video(
-                payload["clip_id"], feats, motion_feats=motion))
+        self._locked("add_video", lambda: self.retriever.add_video(
+            payload["clip_id"], feats, motion_feats=motion))
         return {"ok": True, "clip_id": payload["clip_id"],
                 "clips": len(feats)}
 
@@ -255,32 +282,28 @@ class MomentService:
         feats = np.asarray(payload["features"], np.float32)
         motion = payload.get("motion_features")
         motion = None if motion is None else np.asarray(motion, np.float32)
-        with self._device_lock:
-            n = self._timed("append_video", lambda: self.retriever.append_video(
-                payload["clip_id"], feats, motion_feats=motion))
+        n = self._locked("append_video", lambda: self.retriever.append_video(
+            payload["clip_id"], feats, motion_feats=motion))
         return {"ok": True, "clip_id": payload["clip_id"], "clips": n}
 
     def remove_video(self, payload: dict) -> dict:
         """Evict a video from the serving library (device memory reclaimed
         at the next search's restack)."""
-        with self._device_lock:
-            self._timed("remove_video",
-                        lambda: self.retriever.remove_video(payload["clip_id"]))
+        self._locked("remove_video",
+                     lambda: self.retriever.remove_video(payload["clip_id"]))
         return {"ok": True, "clip_id": payload["clip_id"],
                 "videos": len(self.retriever.clip_ids)}
 
     def save_corpus(self, payload: dict) -> dict:
         """Persist the resident library to `dir` (server-side path) - the
         durability path for live-ingested videos."""
-        with self._device_lock:
-            n = self._timed("save_corpus",
-                            lambda: self.retriever.save_corpus(payload["dir"]))
+        n = self._locked("save_corpus",
+                         lambda: self.retriever.save_corpus(payload["dir"]))
         return {"ok": True, "videos": n, "dir": payload["dir"]}
 
     def load_corpus(self, payload: dict) -> dict:
-        with self._device_lock:
-            n = self._timed("load_corpus",
-                            lambda: self.retriever.load_corpus(payload["dir"]))
+        n = self._locked("load_corpus",
+                         lambda: self.retriever.load_corpus(payload["dir"]))
         return {"ok": True, "videos_loaded": n,
                 "videos": len(self.retriever.clip_ids)}
 
@@ -298,10 +321,9 @@ class MomentService:
             moments = self.batcher.submit(tok, cls, payload.get("query", ""),
                                           sw, tm, am)
         else:
-            with self._device_lock:
-                moments = self._timed("search", lambda: self.retriever.search(
-                    tok, cls, query=payload.get("query", ""),
-                    search_windows=sw, top_moments=tm, adaptive_margin=am))
+            moments = self._locked("search", lambda: self.retriever.search(
+                tok, cls, query=payload.get("query", ""),
+                search_windows=sw, top_moments=tm, adaptive_margin=am))
         for m in moments:  # tuples -> lists for JSON
             m["span"] = [float(m["span"][0]), float(m["span"][1])]
         return {"moments": moments}
@@ -320,15 +342,14 @@ class MomentService:
             clss.append(cls)
         am = payload.get("adaptive_margin")
         sw = payload.get("search_windows")
-        with self._device_lock:
-            results = self._timed(
-                "search_batch",
-                lambda: self.retriever.search_batch(
-                    toks, np.stack(clss),
-                    queries=[r.get("query", "") for r in rows],
-                    search_windows=None if sw is None else int(sw),
-                    top_moments=int(payload.get("top_moments", 10)),
-                    adaptive_margin=None if am is None else float(am)))
+        results = self._locked(
+            "search_batch",
+            lambda: self.retriever.search_batch(
+                toks, np.stack(clss),
+                queries=[r.get("query", "") for r in rows],
+                search_windows=None if sw is None else int(sw),
+                top_moments=int(payload.get("top_moments", 10)),
+                adaptive_margin=None if am is None else float(am)))
         for moments in results:
             for m in moments:
                 m["span"] = [float(m["span"][0]), float(m["span"][1])]
@@ -338,10 +359,9 @@ class MomentService:
         tok, cls = self._text(payload)
         vid = np.asarray(payload["video_features"], np.float32)
         tk = payload.get("top_k")
-        with self._device_lock:
-            times = self._timed("localize", lambda: self.localizer.localize(
-                vid, tok, cls, query=payload.get("query", ""),
-                top_k=None if tk is None else int(tk)))
+        times = self._locked("localize", lambda: self.localizer.localize(
+            vid, tok, cls, query=payload.get("query", ""),
+            top_k=None if tk is None else int(tk)))
         return {"moments": [[float(x) for x in row] for row in times]}
 
     def handle(self, method: str, path: str, payload: Optional[dict]):
@@ -382,6 +402,7 @@ def make_server(service: MomentService, host: str = "127.0.0.1",
     port (pass port=0 for an ephemeral one). Run with serve_forever()."""
 
     class Handler(BaseHTTPRequestHandler):
+        @span("serve.reply")
         def _reply(self, status: int, body: dict):
             data = json.dumps(body).encode()
             self.send_response(status)

@@ -94,6 +94,7 @@ from cone_tpu_torch.train.step import (
     to_floats,
 )
 from cone_tpu_torch.train.tan_step import make_tan_eval_loss_step, make_tan_train_step
+from cone_tpu_torch.utils import trace
 from cone_tpu_torch.utils.device import resolve_device
 from cone_tpu_torch.utils.io import AverageMeter, save_jsonl
 from cone_tpu_torch.utils.logging import MetricLogger
@@ -282,7 +283,8 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
     init_ckpt: weights-only warm start from a reference-named torch file
     (the reference's --resume without --resume_all, cone/config.py:63-66),
     ignored when the run resumes. profile: trace the first epoch with
-    torch.profiler into <workdir>/profile (rank 0). Dropout draws from the
+    torch.profiler into <workdir>/profile (rank 0), every thread and the
+    program's `cone.` spans (utils/trace.py) included. Dropout draws from the
     train step's generator (train/step.py); torch's global generator is
     seeded with train.seed on every rank for the run, and the caller's
     generators are left as they were. A data-parallel run needs a workdir
@@ -398,11 +400,19 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
                 batches = itertools.islice(batches, 3)
             prof = None
             if profile and epoch == start_epoch and distributed.is_main():
+                from torch._C._profiler import _ExperimentalConfig
+
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=acts)
+                # the loader's thread too (prefetch_iterator's host-to-device
+                # copies), with the program's spans on (utils/trace.py)
+                prof = torch.profiler.profile(
+                    activities=acts,
+                    experimental_config=_ExperimentalConfig(profile_all_threads=True))
                 prof.start()
+                traced_before = trace.enabled()
+                trace.enable(True)
             t_epoch = t_load = time.time()
             step_times = []
             # batches are sampled and copied to the device on a background
@@ -423,6 +433,7 @@ def train(cfg: ConeConfig, train_ds: GroundingDataset, eval_ds: Optional[Groundi
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 wall = time.time() - t_epoch
+                trace.enable(traced_before)
                 prof.stop()
                 os.makedirs(os.path.join(workdir, "profile"), exist_ok=True)
                 prof.export_chrome_trace(os.path.join(workdir, "profile", "trace.json"))

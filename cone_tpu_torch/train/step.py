@@ -34,8 +34,10 @@ from cone_tpu_torch.models.losses import compute_losses, loss_weight_dict, total
 from cone_tpu_torch.ops.pooling import matching_embeds_gt
 from cone_tpu_torch.parallel.distributed import LOCAL, GroupReduce, clip_grad_norm_
 from cone_tpu_torch.train.optim import zero_missing_grads
+from cone_tpu_torch.utils.trace import span
 
 
+@span("data.to_device")
 def batch_to_device(batch: dict, device) -> dict:
     """A TrainLoader batch (numpy) as tensors on `device`; integer arrays
     become int64, the index type of gather. Tensors pass through."""
@@ -119,21 +121,26 @@ def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
     clip = cfg.train.grad_clip if cfg.train.grad_clip > 0 else float("inf")
     gen = torch.Generator(device=device)
 
+    @span("step")
     def train_step(batch: dict, adapter_on: bool = False) -> dict:
         model.train()
         batch = batch_to_device(batch, device)
-        gen.manual_seed(step_seed(cfg.train.seed, scheduler.last_epoch))
-        with global_rows(gen, len(batch["query_tokens"]) * reduce.world,
-                         rank_row_blocks(batch, reduce)):
-            total, losses = loss_fn(batch, adapter_on)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        reduce.sum_grads(params)
-        # the pre-clip norm (torch's own clip, cone/train.py:87-88)
-        grad_norm = clip_grad_norm_(params, clip, tp)
-        zero_missing_grads(params)
-        optimizer.step()
-        scheduler.step()
+        with span("step.forward"):
+            gen.manual_seed(step_seed(cfg.train.seed, scheduler.last_epoch))
+            with global_rows(gen, len(batch["query_tokens"]) * reduce.world,
+                             rank_row_blocks(batch, reduce)):
+                total, losses = loss_fn(batch, adapter_on)
+        with span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with span("step.clip"):
+            reduce.sum_grads(params)
+            # the pre-clip norm (torch's own clip, cone/train.py:87-88)
+            grad_norm = clip_grad_norm_(params, clip, tp)
+            zero_missing_grads(params)
+        with span("step.update"):
+            optimizer.step()
+            scheduler.step()
         metrics = global_terms(losses, reduce)
         metrics["grad_norm"] = grad_norm
         return metrics
@@ -163,6 +170,7 @@ def make_eval_loss_step(model, cfg: ConeConfig, reduce: GroupReduce = LOCAL):
     return eval_loss_step
 
 
+@span("step.readback")
 def to_floats(metrics: dict) -> dict:
     """0-d device tensors -> Python floats in one device-to-host transfer."""
     if not metrics:
