@@ -146,10 +146,7 @@ class InferencePipeline:
 
         appear/motion (B, L, D*), ctx (B,), win_idx (B, Qc, K), toks
         (B, Qc, Lq, Dt), tmask (B, Qc, Lq), cls (B, Qc, D). Returns per
-        (B, Qc, K, NQ): proposal spans in seconds ((cxw->xx) * window_len +
-        window_start) * clip_length, fg probabilities, matching scores. A
-        family whose fine stage can leave a candidate slot empty (2D-TAN's
-        within-window NMS) returns a 4th (B, Qc, K, NQ) bool: cand_valid."""
+        (B, Qc, K, NQ) what `_fine_windows` returns per window."""
         cfg = self.cfg
         max_v_l = cfg.data.max_v_l
         b, qc, k = win_idx.shape
@@ -162,15 +159,26 @@ class InferencePipeline:
             return x[:, :, None].expand(b, qc, k, *x.shape[2:]).reshape(n, *x.shape[2:])
 
         ap, mo, wmask = (x.reshape(n, *x.shape[3:]) for x in (ap, mo, wmask))
+        out = self._fine_windows(ap, mo, wmask, wstart.reshape(-1), wlen.reshape(-1),
+                                 toks, tmask, cls, rep)
+        return tuple(x.reshape(b, qc, k, *x.shape[1:]) for x in out)
+
+    def _fine_windows(self, ap, mo, wmask, wstart, wlen, toks, tmask, cls, rep):
+        """The fine forward over N gathered windows: ap/mo (N, max_v_l, D*),
+        wmask (N, max_v_l), wstart/wlen (N,) clips; toks, tmask and cls are
+        per query, and rep(x) gives each window its query's row (the eval
+        path repeats a chunk's queries, the corpus retriever gathers by
+        query index). Returns per (N, NQ): proposal spans in seconds
+        ((cxw->xx) * window_len + window_start) * clip_length, fg
+        probabilities, matching scores. A family whose fine stage can
+        leave a candidate slot empty (2D-TAN's within-window NMS) returns
+        a 4th (N, NQ) bool: cand_valid."""
         out = self.model(rep(toks), rep(tmask), mo, wmask)
         prob_fg = torch.softmax(out["pred_logits"], dim=-1)[..., 0]
         matching = self.model.clip_matching_pred(rep(cls), ap, wmask, out["pred_spans"])
-        nq = prob_fg.shape[-1]
         xx = span_cxw_to_xx(out["pred_spans"])
-        sec = (xx * wlen.reshape(-1)[:, None, None]
-               + wstart.reshape(-1)[:, None, None]) * cfg.data.clip_length
-        return (sec.reshape(b, qc, k, nq, 2), prob_fg.reshape(b, qc, k, nq),
-                matching.reshape(b, qc, k, nq))
+        sec = (xx * wlen[:, None, None] + wstart[:, None, None]) * self.cfg.data.clip_length
+        return sec, prob_fg, matching
 
     @span("fused")
     def _fused(self, appear, a_scale, motion, m_scale, ctx, toks, tmask, cls):

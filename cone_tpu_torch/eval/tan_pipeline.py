@@ -18,7 +18,6 @@ from cone_tpu_torch.config import ConeConfig, TanConfig, check_tan_geometry
 from cone_tpu_torch.eval.pipeline import InferencePipeline
 from cone_tpu_torch.models.tan import ConeTanModel
 from cone_tpu_torch.ops.nms import temporal_nms_device
-from cone_tpu_torch.ops.windows import slice_windows
 
 # TEST.NMS_THRESH_WITHIN_WINDOW (cone_2dtan/lib/core/config.py:105)
 NMS_THRESH_WITHIN_WINDOW = 0.3
@@ -70,24 +69,15 @@ class TanInferencePipeline(InferencePipeline):
     def _adapter_on(self) -> bool:
         return self.tan_cfg.adapter_module == "linear"
 
-    def _fine(self, appear, motion, ctx, win_idx, toks, tmask, cls):
-        """One score-map forward over every (query, window) pair of the
-        batch. Shapes as InferencePipeline._fine; returns (spans in seconds,
-        cell probabilities, matching scores, cand_valid), each per
-        (B, Qc, K, proposal_top_k)."""
+    def _fine_windows(self, ap, mo, wmask, wstart, wlen, toks, tmask, cls, rep):
+        """One score-map forward over N gathered windows (arguments as
+        InferencePipeline._fine_windows; the map needs no frame mask or
+        length); returns (spans in seconds, cell probabilities, matching
+        scores, cand_valid), each per (N, proposal_top_k)."""
         cfg = self.cfg
         nc, stride_t, top_p = self.tan_cfg.num_clips, self.tan_cfg.frame_stride, \
             self.proposal_top_k
-        b, qc, k = win_idx.shape
-        ap, _, wstart, _ = slice_windows(appear, win_idx, self.stride, cfg.data.max_v_l, ctx)
-        mo = ap if motion is appear else slice_windows(
-            motion, win_idx, self.stride, cfg.data.max_v_l, ctx)[0]
-        n = b * qc * k
-
-        def rep(x):  # (B, Qc, ...) -> (B*Qc*K, ...), each query K times
-            return x[:, :, None].expand(b, qc, k, *x.shape[2:]).reshape(n, *x.shape[2:])
-
-        ap, mo = (x.reshape(n, *x.shape[3:]) for x in (ap, mo))
+        n = ap.shape[0]
         scores, map_mask = self.model(rep(toks), rep(tmask), mo)
         # the model's own cell mask: invalid cells score 0, never 0.5, as the
         # reference's sigmoid(prediction) * map_mask (test.py:121-125)
@@ -104,6 +94,5 @@ class TanInferencePipeline(InferencePipeline):
         # pools the raw appearance window over the scaled proposal
         matching = self.model.clip_matching_pred(rep(cls), ap, s_cell * stride_t,
                                                  e_cell * stride_t)
-        sec = (spans_clip * stride_t + wstart.reshape(-1)[:, None, None]) * cfg.data.clip_length
-        return (sec.reshape(b, qc, k, top_p, 2), top_prob.reshape(b, qc, k, top_p),
-                matching.reshape(b, qc, k, top_p), cand_valid.reshape(b, qc, k, top_p))
+        sec = (spans_clip * stride_t + wstart[:, None, None]) * cfg.data.clip_length
+        return sec, top_prob, matching, cand_valid

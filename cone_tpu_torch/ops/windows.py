@@ -80,14 +80,36 @@ def slice_windows(features: torch.Tensor, window_idx: torch.Tensor,
         out = slice_windows(features[None], window_idx[None], stride, max_v_l,
                             torch.as_tensor(ctx_l, device=features.device).reshape(1))
         return tuple(x[0] for x in out)
-    b, l_pad, d = features.shape
+    b = features.shape[0]
     lead = (b,) + (1,) * (window_idx.dim() - 1)
     ctx = torch.as_tensor(ctx_l, device=features.device).reshape(lead)
+    video = torch.arange(b, device=features.device).reshape(lead)
+    (feats,), mask, start, length = slice_windows_flat((features,), video, window_idx, ctx,
+                                                       stride, max_v_l)
+    return feats, mask, start, length
+
+
+def slice_windows_flat(stacks, video, window_idx: torch.Tensor, ctx_l, stride: int,
+                       max_v_l: int):
+    """Gather windows of many videos out of stacked (V, L_pad, D_i) tensors.
+
+    slice_windows with a per-window video row: window n is window
+    `window_idx[n]` of video `video[n]` of the stack, whose length is
+    `ctx_l[n]`. Each tensor of `stacks` (the first one a tensor, a later
+    None passes through) is gathered at the same rows, so encoded features
+    and their per-frame scales come out together and decode after the
+    gather. video and ctx_l broadcast to window_idx.
+
+    Returns (list of (..., max_v_l, D_i) windows zeroed past their length,
+    mask (..., max_v_l) float32, starts (...) int32, lengths (...) int32).
+    """
+    v, l_pad = stacks[0].shape[:2]
+    dev = stacks[0].device
     start = ((window_idx - 1) * stride).clamp(min=0)
-    end = torch.minimum((window_idx - 1) * stride + max_v_l, ctx)
-    pos = start[..., None] + torch.arange(max_v_l, device=features.device)
+    end = torch.minimum((window_idx - 1) * stride + max_v_l, ctx_l)
+    pos = start[..., None] + torch.arange(max_v_l, device=dev)
     mask = (pos < end[..., None]).float()
-    row = pos.clamp(0, l_pad - 1) + (torch.arange(b, device=features.device)
-                                     * l_pad).reshape(lead + (1,))
-    gathered = features.reshape(b * l_pad, d)[row]
-    return (gathered * mask[..., None], mask, start.int(), (end - start).int())
+    row = pos.clamp(0, l_pad - 1) + (video * l_pad)[..., None]
+    out = [None if x is None else x.reshape(v * l_pad, x.shape[-1])[row] * mask[..., None]
+           for x in stacks]
+    return out, mask, start.int(), (end - start).int()

@@ -12,8 +12,10 @@ all videos at once:
      stacked corpus; all of them issued before one transfer to the host);
   2. global merge: top `search_windows` (video, window) pairs by coarse
      score across the whole corpus (host, tiny);
-  3. fine: the selected windows group by video into the standard batched
-     fine forward (the per-video pipeline's own `_fine`);
+  3. fine: exactly the selected windows, gathered out of the stacked corpus
+     and packed across videos and queries, through the pipeline's
+     window-level fine forward (`_fine_windows`, which the per-video
+     `_fine` runs too);
   4. post: reference-semantics scoring per video (min-max fusion over the
      query's candidate set, NMS *within* each video, since temporal IoU
      across videos means nothing), then one global ranking by fusion score.
@@ -33,7 +35,7 @@ holding the whole library (cone_tpu/serve/corpus.py:551-557).
 
 from __future__ import annotations
 
-import dataclasses
+import itertools
 import os
 from typing import Dict, List, Optional
 
@@ -50,7 +52,11 @@ from cone_tpu_torch.data.store import (
 )
 from cone_tpu_torch.eval.pipeline import _fetch, make_pipeline
 from cone_tpu_torch.ops.nms import temporal_nms_host
-from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+from cone_tpu_torch.ops.windows import (
+    num_windows,
+    slice_windows_flat,
+    window_scores_from_frame_scores,
+)
 from cone_tpu_torch.parallel import distributed
 from cone_tpu_torch.utils.io import l2_normalize, min_max_normalize
 from cone_tpu_torch.utils.trace import span
@@ -59,19 +65,17 @@ from cone_tpu_torch.utils.trace import span
 class CorpusRetriever:
     """Search one query, or a batch, against all resident videos.
 
-    Built on a dedicated `InferencePipeline` (fine forward at `fine_chunk`
-    query lanes); video features upload once (encoded per
-    eval.corpus_dtype, stacked per ctx bucket) and are shared across
-    searches.
+    Built on a dedicated `InferencePipeline`; video features upload once
+    (encoded per eval.corpus_dtype, stacked per ctx bucket) and are shared
+    across searches. `fine_chunk` bounds one fine dispatch to
+    fine_chunk x data.topk_window windows (a batch's worth of fine work):
+    each query's chosen windows, over every video they lie in, pack into as
+    few dispatches of its own as that allows, with no padded slot.
     """
 
     def __init__(self, model, cfg: ConeConfig,
                  dataset: Optional[GroundingDataset] = None,
                  fine_chunk: int = 8, device="cuda"):
-        # fine_chunk: queries batched per fine dispatch in search_batch (and
-        # the padding width of a single-query search)
-        cfg = cfg.replace(
-            eval=dataclasses.replace(cfg.eval, query_chunk=fine_chunk))
         self.cfg = cfg
         self.fine_chunk = fine_chunk
         ds = dataset if dataset is not None else self._empty_ds()
@@ -88,6 +92,11 @@ class CorpusRetriever:
             except (AttributeError, TypeError):
                 pass
         self._stacked = None  # {bucket_len: (ids, A, S, M, MS, ctx, ctxs)}
+        self._row_of: Dict[str, tuple] = {}
+        # the fine stage's work since construction (MomentService /stats
+        # "fine"): windows refined and dispatches; every row of a dispatch is
+        # a real window, none padded; host integers, no device sync
+        self.fine_windows = self.fine_dispatches = 0
 
     def _empty_ds(self):
         text = TextFeatureStore(InMemoryArrayStore({}), InMemoryArrayStore({}))
@@ -261,19 +270,10 @@ class CorpusRetriever:
             stacked[l_pad] = (ids, A, S, M, MS, ctx, ctxs)
         self.pipe._dev_cache.clear()
         self._stacked = stacked
+        # movie -> (its bucket, its row in the bucket's stack)
+        self._row_of = {cid: (l_pad, i) for l_pad, (ids, *_) in stacked.items()
+                        for i, cid in enumerate(ids)}
         return stacked
-
-    def _video_arrays(self, clip_id: str):
-        """(appear, a_scale, motion, m_scale, ctx_l) for one movie: views
-        into the resident stack."""
-        for ids, A, S, M, MS, _, ctxs in self._ensure_stacked().values():
-            if clip_id in ids:
-                i = ids.index(clip_id)
-                a, s = A[i], None if S is None else S[i]
-                if M is None:
-                    return a, s, a, s, ctxs[i]
-                return a, s, M[i], None if MS is None else MS[i], ctxs[i]
-        raise KeyError(clip_id)
 
     @torch.inference_mode()
     @span("corpus.scan")
@@ -316,8 +316,10 @@ class CorpusRetriever:
 
         All queries share the per-bucket coarse scans (the pass over the
         resident corpus is paid once per batch, not per query), and the
-        fine stage batches up to `fine_chunk` queries that shortlisted the
-        same movie into one forward.
+        fine stage runs each query's chosen windows, whatever movie they
+        lie in, packed into dispatches of its own of at most fine_chunk x
+        topk_window windows, so a query's answer does not depend on the
+        batch it came in.
 
         Args:
             token_feats_list: Q arrays of (Lq_i, Dt) query token features.
@@ -336,8 +338,6 @@ class CorpusRetriever:
         nq = len(token_feats_list)
         queries = queries or [""] * nq
         k = self.cfg.data.topk_window if search_windows is None else search_windows
-        kk = self.cfg.data.topk_window
-        fc = self.fine_chunk
         clss = np.asarray(cls_feats, np.float32)
         clss = clss / np.maximum(
             np.linalg.norm(clss, axis=-1, keepdims=True), 1e-12)
@@ -397,66 +397,55 @@ class CorpusRetriever:
                     if cid in mine:
                         chosen[qi].setdefault(cid, []).append(int(w))
 
-        # stage 3: fine. Queries that shortlisted the same movie batch into
-        # one forward (fine_chunk lanes); everything is launched before the
-        # one transfer to the host
+        # stage 3: fine over exactly the chosen windows. One row a real
+        # (movie, query, window) triple. Each query's triples, in the order
+        # it reached its movies and then window order, sort by ctx bucket and
+        # cut into dispatches of at most fine_chunk x topk_window windows,
+        # each one gather per bucket straight out of the resident stack and
+        # one fine forward. A query never shares a dispatch, so its answer
+        # runs the same shapes alone or in any batch; all are launched
+        # before the one transfer to the host
         with span("corpus.fine"):
-            toks_np = np.zeros((nq, self.cfg.data.max_q_l,
-                                self.cfg.model.t_feat_dim), np.float32)
-            tmask_np = np.zeros((nq, self.cfg.data.max_q_l), np.float32)
+            stacked = self._ensure_stacked()
+            toks = np.zeros((nq, self.cfg.data.max_q_l, self.cfg.model.t_feat_dim), np.float32)
+            tmask = np.zeros((nq, self.cfg.data.max_q_l), np.float32)
             for qi, tok in enumerate(token_feats_list):
                 n_tok = min(len(tok), self.cfg.data.max_q_l)
-                toks_np[qi, :n_tok] = tok[:n_tok]
-                tmask_np[qi, :n_tok] = 1
-
-            # a (query, video) pair whose shortlist exceeds the fine forward's
-            # window axis (kk lanes) dispatches as multiple rows, so the full
-            # `search_windows` budget is honored even when the coarse signal
-            # concentrates every window in one movie
-            by_movie: Dict[str, List[tuple]] = {}
-            for qi, ch in enumerate(chosen):
-                for cid, wins in ch.items():
-                    for s in range(0, len(wins), kk):
-                        by_movie.setdefault(cid, []).append((qi, wins[s : s + kk]))
-            pipe = self.pipe
+                toks[qi, :n_tok] = tok[:n_tok]
+                tmask[qi, :n_tok] = 1
+            query_rows = [self.pipe._to_device(x) for x in (toks, tmask, clss)]
+            cap = self.fine_chunk * self.cfg.data.topk_window
             fine_pend = []
-            for cid, lst in by_movie.items():
-                appear, a_scale, motion, m_scale, ctx_l = self._video_arrays(cid)
-                # the pipeline's fine forward carries a leading video axis
-                ap = pipe._decode(appear, a_scale)[None]
-                mo = ap if motion is appear else pipe._decode(motion, m_scale)[None]
-                ctx = pipe._to_device(np.asarray([ctx_l], np.int32))
-                for i in range(0, len(lst), fc):
-                    grp = lst[i : i + fc]
-                    win_idx = np.zeros((fc, kk), np.int64)
-                    toks = np.zeros((fc,) + toks_np.shape[1:], np.float32)
-                    tmask = np.zeros((fc,) + tmask_np.shape[1:], np.float32)
-                    cls_rows = np.zeros((fc, clss.shape[1]), np.float32)
-                    cls_rows[:, 0] = 1.0  # pad rows: unit vector, no 0/0
-                    for j, (qi, wins) in enumerate(grp):
-                        win_idx[j, : len(wins)] = wins[:kk]
-                        toks[j], tmask[j] = toks_np[qi], tmask_np[qi]
-                        cls_rows[j] = clss[qi]
-                    got = pipe._fine(ap, mo, ctx, *(pipe._to_device(x[None]) for x in
-                                                    (win_idx, toks, tmask, cls_rows)))
-                    fine_pend.append((cid, grp, tuple(x[0] for x in got)))
-            fine_res = _fetch([f[2] for f in fine_pend])
+            for qi, ch in enumerate(chosen):
+                wins = sorted(((cid, qi, w) for cid, ws in ch.items() for w in ws),
+                              key=lambda t: self._row_of[t[0]][0])
+                for d in range(0, len(wins), cap):
+                    part = wins[d : d + cap]
+                    fine_pend.append((part, self._fine_packed(stacked, part, *query_rows)))
+            self.fine_windows += sum(len(part) for part, _ in fine_pend)
+            self.fine_dispatches += len(fine_pend)
+            fine_res = _fetch([f[1] for f in fine_pend])
 
         # stage 4: reference-semantics post-processing, per query
         with span("corpus.post"):
+            at = {t: (res, r) for (part, _), res in zip(fine_pend, fine_res)
+                  for r, t in enumerate(part)}
             rows: List[List[list]] = [[] for _ in range(nq)]
-            # a fine stage with empty candidate slots (2D-TAN's within-window NMS)
-            # marks them in a 4th output, cand_valid; cone_tpu's retriever ignores
-            # the mark, so the suppressed cells in those slots stay candidates here
-            for (cid, grp, _), (spans_sec, prob, match, *_) in zip(fine_pend, fine_res):
-                for j, (qi, wins) in enumerate(grp):
-                    for w in range(len(wins)):
-                        for p in range(prob.shape[2]):
+            # a query's rows movie by movie (first reached by the batch first),
+            # then window order. A fine stage with empty candidate slots
+            # (2D-TAN's within-window NMS) marks them in a 4th output,
+            # cand_valid; cone_tpu's retriever ignores the mark, so the
+            # suppressed cells in those slots stay candidates here
+            for cid in dict.fromkeys(cid for ch in chosen for cid in ch):
+                for qi, ch in enumerate(chosen):
+                    for w in ch.get(cid, ()):
+                        (spans_sec, prob, match, *_), r = at[(cid, qi, w)]
+                        for p in range(prob.shape[1]):
                             rows[qi].append(
-                                [cid, float(f"{spans_sec[j, w, p, 0]:.4f}"),
-                                 float(f"{spans_sec[j, w, p, 1]:.4f}"),
-                                 float(f"{prob[j, w, p]:.4f}"),
-                                 float(f"{match[j, w, p]:.4f}")])
+                                [cid, float(f"{spans_sec[r, p, 0]:.4f}"),
+                                 float(f"{spans_sec[r, p, 1]:.4f}"),
+                                 float(f"{prob[r, p]:.4f}"),
+                                 float(f"{match[r, p]:.4f}")])
             # the min-max fusion must see the query's corpus-wide candidate set
             parts = distributed.all_gather_obj(rows)
             rows = [[r for g in parts for r in g[qi]] for qi in range(nq)]
@@ -464,6 +453,36 @@ class CorpusRetriever:
                 self._postprocess(rows[qi], queries[qi], top_moments)
                 for qi in range(nq)
             ]
+
+    def _fine_packed(self, stacked, wins, toks, tmask, cls):
+        """One fine dispatch over `wins`, (movie, query, window) triples
+        sorted by ctx bucket: per bucket one gather of its windows out of
+        the stacked corpus (decoded after the gather), the buckets' windows
+        concatenated, each window given its query's rows of the device
+        (Q, ...) toks/tmask/cls. Returns the family's fine outputs, one row
+        a triple, unfetched."""
+        pipe = self.pipe
+        video, win_idx, qidx = pipe._to_device(np.asarray(
+            [(self._row_of[cid][1], w, qi) for cid, qi, w in wins], np.int64).T)
+        parts, lo = [], 0
+        for l_pad, grp in itertools.groupby(self._row_of[cid][0] for cid, _, _ in wins):
+            hi = lo + len(list(grp))
+            _, A, S, M, MS, ctx, _ = stacked[l_pad]
+            v = video[lo:hi]
+            (a, a_s, m, m_s), wmask, wstart, wlen = slice_windows_flat(
+                (A, S, M, MS), v, win_idx[lo:hi], ctx[v], pipe.stride,
+                self.cfg.data.max_v_l)
+            ap = pipe._decode(a, a_s)
+            parts.append((ap, ap if m is None else pipe._decode(m, m_s), wmask, wstart, wlen))
+            lo = hi
+
+        def cat(j):
+            return parts[0][j] if len(parts) == 1 else torch.cat([p[j] for p in parts])
+
+        ap = cat(0)
+        mo = ap if all(p[1] is p[0] for p in parts) else cat(1)
+        return pipe._fine_windows(ap, mo, cat(2), cat(3), cat(4), toks, tmask, cls,
+                                  lambda x: x[qidx])
 
     def _postprocess(self, rows, query: str, top_moments: int) -> List[Dict]:
         """Min-max fusion over one query's corpus-wide candidate set, NMS

@@ -13,7 +13,9 @@ search_batch do), never once at construction.
 Endpoints (all JSON):
   GET  /healthz    {"ok", "backend", "videos"}
   GET  /stats      request counters, per-endpoint mean latency and mean
-                   wait for the device lock (mean_queue_s), corpus size
+                   wait for the device lock (mean_queue_s), corpus size,
+                   the corpus search's fine stage ("fine": windows refined,
+                   dispatches)
   POST /add_video  {"clip_id", "features": [[...]], "motion_features"?}
   POST /append_video {"clip_id", "features", "motion_features"?}
                    (streaming ingest: grow a resident video's timeline)
@@ -65,7 +67,7 @@ class _MicroBatcher:
     (retriever.search_batch, pinned equal to per-query search by
     tests/test_torch_serve.py): the first arrival opens a window of
     `window_s`, everything that lands inside it (up to `max_batch`) shares
-    the coarse scans and the per-movie fine packing. This is what
+    the coarse scans, each query keeping fine dispatches of its own. This is what
     /search_batch gives cooperating bulk clients, without requiring clients
     to coordinate. Requests with different (search_windows, top_moments)
     options split into per-signature sub-batches.
@@ -258,8 +260,10 @@ class MomentService:
             for c in self.retriever.clip_ids
             if c in self.retriever.pipe.ds._vid_cache
         )
+        r = self.retriever
         out = {"requests": dict(self._counts), "mean_latency_s": lat, "mean_queue_s": queue,
-               "videos": len(self.retriever.clip_ids), "total_clips": clips}
+               "videos": len(r.clip_ids), "total_clips": clips,
+               "fine": {"windows": r.fine_windows, "dispatches": r.fine_dispatches}}
         if self.batcher is not None:
             b = self.batcher
             out["dynamic_batching"] = {
@@ -331,8 +335,9 @@ class MomentService:
     def search_batch(self, payload: dict) -> dict:
         """Batched corpus search: {"queries": [{"token_features",
         "cls_feature"} | {"query"}...], "top_moments"?, "search_windows"?}.
-        All queries share the per-bucket coarse scans and the fine stage
-        batches per movie - the throughput surface for bulk clients
+        All queries share the per-bucket coarse scans, and each query's
+        windows run packed in fine dispatches of its own - the throughput
+        surface for bulk clients
         (one sweep over the corpus instead of one per request)."""
         rows = payload["queries"]
         toks, clss = [], []
