@@ -18,6 +18,7 @@ from cone_tpu_torch.config import ConeConfig, TanConfig, check_tan_geometry
 from cone_tpu_torch.eval.pipeline import InferencePipeline
 from cone_tpu_torch.models.tan import ConeTanModel
 from cone_tpu_torch.ops.nms import temporal_nms_device
+from cone_tpu_torch.utils.trace import span
 
 # TEST.NMS_THRESH_WITHIN_WINDOW (cone_2dtan/lib/core/config.py:105)
 NMS_THRESH_WITHIN_WINDOW = 0.3
@@ -36,6 +37,7 @@ def top_k_ref_order(x: torch.Tensor, k: int):
     return vals[..., :k], x.shape[-1] - 1 - ridx[..., :k]
 
 
+@span("tan.window_nms")
 def within_window_nms(prob: torch.Tensor, num_clips: int, top_p: int):
     """(N, S * E) cell probabilities -> (spans in map cells (N, top_p, 2),
     their probabilities, valid (N, top_p)): greedy NMS at

@@ -39,6 +39,7 @@ from cone_tpu_torch.ops.pooling import (
     matching_sim_gt,
 )
 from cone_tpu_torch.utils.device import resolve_device
+from cone_tpu_torch.utils.trace import span
 
 
 def sparse_map_layout(num_clips: int, num_scale_layers: Sequence[int]):
@@ -251,7 +252,15 @@ class BaseFusion(nn.Module):
         self.vis_conv = nn.Conv2d(hidden_size, hidden_size, 1, 1, device=device)
 
     def forward(self, tokens, tok_mask, map_h, map_mask):
-        txt = self.tex_linear(self.textual_encoder(tokens, tok_mask))   # (B, H)
+        return self.fuse(self.encode_text(tokens, tok_mask), map_h, map_mask)
+
+    def encode_text(self, tokens, tok_mask):
+        """(B, Lq, Dt) tokens -> (B, H) query vectors: the LSTM's last valid
+        output through tex_linear."""
+        return self.tex_linear(self.textual_encoder(tokens, tok_mask))
+
+    def fuse(self, txt, map_h, map_mask):
+        """(B, H) query vectors x the 1x1-conv'd (B, H, S, E) map."""
         fused = txt[:, :, None, None] * self.vis_conv(map_h)
         # safe L2 normalize: a zero cell stays 0 and gets no NaN gradient
         # (rsqrt of 0 behind a where would still poison the backward)
@@ -294,7 +303,9 @@ class ConeTanModel(nn.Module):
 
       forward             (scores (B, S, E), map_mask (S, E)) from tokens
                           (B, Lq, Dt), their mask (B, Lq) and the raw window
-                          (B, num_clips * frame_stride, Dv)
+                          (B, num_clips * frame_stride, Dv); spans
+                          `cone.tan.text` (the LSTM and tex_linear) and
+                          `cone.tan.map` (frame pool to prediction)
       adapt               residual adapter on appearance features
       clip_matching_gt    GT-proposal matching logits (B, B)
       clip_matching_pred  (B, K) matching scores of integer proposals
@@ -341,10 +352,13 @@ class ConeTanModel(nn.Module):
         return out
 
     def forward(self, tokens, tok_mask, visual_input):
-        vis_h = self.frame_layer(visual_input.transpose(1, 2))
-        map_h, map_mask = self.prop_layer(vis_h)
-        fused = self.fusion_layer(tokens, tok_mask, map_h, map_mask)
-        pred = self.pred_layer(self.map_layer(fused))[:, 0] * map_mask
+        with span("tan.text"):
+            txt = self.fusion_layer.encode_text(tokens, tok_mask)
+        with span("tan.map"):
+            vis_h = self.frame_layer(visual_input.transpose(1, 2))
+            map_h, map_mask = self.prop_layer(vis_h)
+            fused = self.fusion_layer.fuse(txt, map_h, map_mask)
+            pred = self.pred_layer(self.map_layer(fused))[:, 0] * map_mask
         return pred, map_mask
 
     def adapt(self, feat):

@@ -50,6 +50,7 @@ import torch.distributed as dist
 
 from cone_tpu_torch.parallel.mesh import grid_coords, tp_size
 from cone_tpu_torch.utils.device import resolve_device
+from cone_tpu_torch.utils.trace import span
 
 # one limit for the rendezvous and for every collective: a rank that fails
 # or lags beyond it fails the run instead of hanging it
@@ -254,17 +255,18 @@ class GroupReduce:
 
     def sum_grads(self, params) -> None:
         """Sum the gradients of `params` over ranks in one coalesced
-        all-reduce; parameters without a gradient (the same on every rank)
-        are left out of it (the train step gives them a zero gradient after
-        the clip)."""
+        all-reduce (span `cone.step.allreduce`); parameters without a
+        gradient (the same on every rank) are left out of it (the train
+        step gives them a zero gradient after the clip)."""
         grads = [p.grad for p in params if p.grad is not None]
         if self._all_reduce is None or not grads:
             return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        self._all_reduce(flat)
-        # one multi-tensor copy back, not a copy launch per parameter
-        torch._foreach_copy_(grads, [part.view_as(g) for g, part in
-                                     zip(grads, flat.split([g.numel() for g in grads]))])
+        with span("step.allreduce"):
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            self._all_reduce(flat)
+            # one multi-tensor copy back, not a copy launch per parameter
+            torch._foreach_copy_(grads, [part.view_as(g) for g, part in
+                                         zip(grads, flat.split([g.numel() for g in grads]))])
 
 
 LOCAL = GroupReduce()
