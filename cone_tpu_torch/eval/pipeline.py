@@ -349,20 +349,26 @@ class InferencePipeline:
     @span("pipeline.assemble")
     def _assemble(self, groups, results):
         """The fetched outputs of every dispatch -> (moments of each
-        modality, ranklists), per query."""
+        modality, ranklists), per query. Array-wise: one mask and one
+        `tolist` a dispatch item over its real query rows, then a slice a
+        query; padded rows and padded items are never converted."""
         ranklists = {}
         out = {name: [] for name in MODALITIES}
         for group, (order, _, k_sp, k_sc, k_va) in zip(groups, results):
             for v, (chunk, n_win, _) in enumerate(group):
+                nq = len(chunk)
+                ids = order[v, :nq]
+                keep = ids < n_win
+                # (3, nq, K, 3) [start, end, score]; NMS compacts kept slots to the front
+                times = np.concatenate((k_sp[:, v, :nq], k_sc[:, v, :nq, :, None]),
+                                       -1).tolist()
+                counts = k_va[:, v, :nq].sum(-1).tolist()
                 for j, ex in enumerate(chunk):
-                    ranklists[ex.query_id] = [int(w) for w in order[v, j] if w < n_win]
+                    ranklists[ex.query_id] = ids[j][keep[j]].tolist()
                     for m, name in enumerate(MODALITIES):
-                        n = int(k_va[m, v, j].sum())
-                        times = [[float(k_sp[m, v, j, i, 0]), float(k_sp[m, v, j, i, 1]),
-                                  float(k_sc[m, v, j, i])] for i in range(n)]
                         out[name].append(dict(
                             query_id=ex.query_id, query=ex.query, video_id=ex.video_id,
-                            clip_id=ex.clip_id, predicted_times=times))
+                            clip_id=ex.clip_id, predicted_times=times[m][j][: counts[m][j]]))
         return out, ranklists
 
     def _fused_groups(self):

@@ -257,11 +257,21 @@ def _assert_same_moments(subs, want_subs):
             np.testing.assert_allclose(got[:, 2:], w[:, 2:], atol=SCORE_ATOL)
 
 
-@pytest.mark.parametrize("corpus_dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("kernel", [False, True], ids=["plain_coarse", "kernel_coarse"])
-def test_run_fused_matches_cone_tpu(synthetic, kernel, corpus_dtype):
+# the fixture's eval.video_batch 2 over 3 videos: one group holds a padded
+# item; "buckets" splits the videos 180 and 122 frames long (192) from the
+# one 199 long (256), so each bucket has its own window count and the
+# 256 one a padded item beside a 3-query chunk of 4 rows
+FUSED_CASES = [pytest.param(kernel, dtype, {}, id=f"{kid}-{dtype}")
+               for kernel, kid in ((False, "plain_coarse"), (True, "kernel_coarse"))
+               for dtype in ("float32", "bfloat16", "int8")] + [
+    pytest.param(True, "float32", dict(ctx_buckets=(192, 256)),
+                 id="kernel_coarse-float32-buckets")]
+
+
+@pytest.mark.parametrize("kernel,corpus_dtype,layout", FUSED_CASES)
+def test_run_fused_matches_cone_tpu(synthetic, kernel, corpus_dtype, layout):
     cfg, ds, model, jcfg, jds, jmodel, params = synthetic
-    opts = dict(use_pallas_coarse=kernel, corpus_dtype=corpus_dtype)
+    opts = dict(use_pallas_coarse=kernel, corpus_dtype=corpus_dtype, **layout)
     subs, ranklists = InferencePipeline(model, ds, _with_eval(cfg, **opts),
                                         device="cpu").run(host_postproc=False, fused=True)
     jsubs, jranklists = JInferencePipeline(jmodel, params, jds, _with_eval(jcfg, **opts)).run(
