@@ -691,23 +691,15 @@ def near_tie_flips(pipe_off, ds, ranklists, ranklists_off, tol=REL_TOL):
     scores must still descend up to `tol` relative (only near-ties may
     swap). Returns (identical queries, window flips)."""
     import numpy as np
-    import torch
 
-    from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+    from cone_tpu_torch.tools.dist_worker import video_window_scores
 
-    dev = pipe_off.device
     diff = [q for q in ranklists if ranklists[q] != ranklists_off[q]]
     flips = 0
     for qid in diff:
         ex = next(e for e in ds.examples if e.query_id == qid)
-        appear, a_scale, _, _, ctx_l = pipe_off._device_video(ex.clip_id)
-        with torch.inference_mode():
-            adapted = pipe_off._adapt(pipe_off._decode(appear, a_scale))[None]
-            cls = torch.from_numpy(ds.query_features(qid)[1]).to(dev)[None, None]
-            s, _ = window_scores_from_frame_scores(
-                cls @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device=dev),
-                pipe_off.stride, num_windows(ctx_l, pipe_off.stride))
-        s = s[0, 0].cpu().numpy()[ranklists[qid]]
+        s = video_window_scores(pipe_off, ex.clip_id,
+                                ds.query_features(qid)[1])[ranklists[qid]]
         check(bool((s[:-1] >= s[1:] - tol * np.maximum(1.0, np.abs(s[1:]))).all()),
               f"{qid}: ranklists differ beyond near-ties ({tol:.1e} relative)")
         flips += sum(a != b for a, b in zip(ranklists[qid], ranklists_off[qid]))
@@ -1900,7 +1892,7 @@ def towers_phase(card, peaks):
     from cone_tpu_torch.serve.localizer import OnlineLocalizer
     from cone_tpu_torch.serve.predictor import MomentPredictor
     from cone_tpu_torch.serve.server import MomentService, make_server
-    from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
+    from cone_tpu_torch.tools.dist_worker import video_window_scores
     from cone_tpu_torch.utils.device import cuda_ms
     from cone_tpu_torch.utils.io import l2_normalize
 
@@ -2169,15 +2161,7 @@ def towers_phase(card, peaks):
                 score_err = max(score_err, float(np.abs(a[:, 2:] - b[:, 2:]).max()))
                 # the plain path's window scores order both ranklists: only
                 # near-ties may swap
-                pipe = loc_off.pipe
-                appear, a_scale, _, _, ctx_l = pipe._device_video("v0")
-                with torch.inference_mode():
-                    adapted = pipe._adapt(pipe._decode(appear, a_scale))[None]
-                    clsq = torch.from_numpy(args[2]).to(dev)[None, None]
-                    s, _ = window_scores_from_frame_scores(
-                        clsq @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device=dev),
-                        pipe.stride, num_windows(ctx_l, pipe.stride))
-                s = s[0, 0].cpu().numpy()
+                s = video_window_scores(loc_off.pipe, "v0", args[2])
                 for other, rl in (("CPU", cpu_rl), ("kernel off", off_rl)):
                     if rl != card_rl:
                         check(_descends(s, card_rl) and _descends(s, rl),
@@ -3015,7 +2999,7 @@ def scratch_phase(card, ds, standard_step_ms):
     mruns = {}
     for name, cfg in mvariants.items():
         mpipe = InferencePipeline(seeded(cfg, device, msd), mds, cfg, device=device)
-        l_pad = mpipe._bucket_len(SCRATCH_MAD_FRAMES)
+        l_pad = mpipe.resident.bucket_len(SCRATCH_MAD_FRAMES)
         co.coarse_segment_max.launches = 0
         msubs, _ = mpipe.run(host_postproc=False, fused=True)
         torch.cuda.synchronize()

@@ -117,6 +117,17 @@ class GroundingDataset:
         self._vid_cache[clip_id] = (ap, mo)
         self._pinned.add(clip_id)
 
+    def evict_video(self, clip_id: str) -> None:
+        """Drop one video's cached features and its pin; a video with a
+        backing store entry reads again at its next use."""
+        self._vid_cache.pop(clip_id, None)
+        self._pinned.discard(clip_id)
+
+    def cached_video(self, clip_id: str):
+        """The cached (appearance, motion) of a video, else None; reads no
+        store."""
+        return self._vid_cache.get(clip_id)
+
     def prefetch_videos(self, clip_ids) -> None:
         """Hint the backing stores to page-warm upcoming videos (no-op for
         stores without a `prefetch` method)."""

@@ -10,16 +10,17 @@
   post:    the reference-exact host path (decimal rounding, dict dedup,
            numpy NMS) or the batched device path (fusion + dedup + NMS)
 
-Videos pad to data.max_ctx_l (or the smallest eval.ctx_buckets entry that
-fits). The fused path runs `eval.video_batch` (video, query-chunk) work
-items per dispatch along a leading video axis, with every step on the
-device and no host synchronisation until one transfer at the end.
+Videos live on the device as eval/resident.py lays them out (padded to
+their ctx bucket, encoded per eval.corpus_dtype). The fused path runs
+`eval.video_batch` (video, query-chunk) work items per dispatch along a
+leading video axis, with every step on the device and no host
+synchronisation until one transfer at the end.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ import torch
 from cone_tpu_torch.config import ConeConfig
 from cone_tpu_torch.data.dataset import GroundingDataset
 from cone_tpu_torch.data.prefetch import prefetch_iterator
+from cone_tpu_torch.eval.resident import ResidentVideos
 from cone_tpu_torch.models.cone import ConeModel
 from cone_tpu_torch.ops.coarse import coarse_segment_max, window_scores_from_segment_max
 from cone_tpu_torch.ops.nms import (
@@ -36,11 +38,7 @@ from cone_tpu_torch.ops.nms import (
     temporal_nms_host,
 )
 from cone_tpu_torch.ops.spans import round4_device, span_cxw_to_xx
-from cone_tpu_torch.ops.windows import (
-    num_windows,
-    slice_windows,
-    window_scores_from_frame_scores,
-)
+from cone_tpu_torch.ops.windows import coarse_window_scores, num_windows, slice_windows
 from cone_tpu_torch.utils.device import resolve_device
 from cone_tpu_torch.utils.io import min_max_normalize
 from cone_tpu_torch.utils.trace import span
@@ -94,22 +92,24 @@ class InferencePipeline:
                  cfg: ConeConfig, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.ds = dataset
         self.cfg = cfg
         self.stride = cfg.data.max_v_l // 2
-        self.max_ctx = cfg.data.max_ctx_l
-        self.max_w = num_windows(self.max_ctx, self.stride)
-        self._dev_cache: dict = {}
+        self.resident = ResidentVideos(dataset, cfg, self.device)
         self._stack_cache: dict = {}  # key -> (arrays, nbytes), LRU order
 
-    # ------------------------------------------------------------ device fns
+    @property
+    def ds(self) -> GroundingDataset:
+        """The dataset the resident videos are read from (`reset` swaps it)."""
+        return self.resident.ds
 
-    @staticmethod
-    def _decode(x, scale):
-        """Corpus features back to fp32: float32/bfloat16 carry no scale;
-        int8 carries its per-frame scale (..., L, 1)."""
-        x = x.float()
-        return x if scale is None else x * scale
+    def reset(self, dataset: Optional[GroundingDataset] = None):
+        """Drop every resident video and stacked group; given a dataset,
+        run over that one from now on."""
+        self.resident = ResidentVideos(self.ds if dataset is None else dataset, self.cfg,
+                                       self.device)
+        self._stack_cache.clear()
+
+    # ------------------------------------------------------------ device fns
 
     def _adapter_on(self) -> bool:
         """The family's own adapter knob; a subclass with another head
@@ -135,9 +135,7 @@ class InferencePipeline:
             scores, valid = window_scores_from_segment_max(
                 seg, ctx[:, None], self.stride, max_w)
         else:
-            frame_scores = cls @ adapted.transpose(1, 2)
-            scores, valid = window_scores_from_frame_scores(
-                frame_scores, ctx[:, None], self.stride, max_w)
+            scores, valid = coarse_window_scores(adapted, cls, ctx, self.stride, max_w)
         order = torch.argsort(-scores, dim=-1, stable=True)
         return order, valid.sum(-1)
 
@@ -189,8 +187,8 @@ class InferencePipeline:
         kept_scores (3, B, Qc, K), kept_valid (3, B, Qc, K))."""
         cfg = self.cfg
         same = motion is appear
-        appear = self._decode(appear, a_scale)
-        motion = appear if same else self._decode(motion, m_scale)
+        appear = self.resident.decode(appear, a_scale)
+        motion = appear if same else self.resident.decode(motion, m_scale)
         with span("fused.adapt"):
             adapted = self._adapt(appear)
         with span("fused.coarse"):
@@ -245,65 +243,6 @@ class InferencePipeline:
                                    max_before_nms=ev.max_before_nms)
 
     # -------------------------------------------------------------- staging
-
-    def _bucket_len(self, ctx_l: int) -> int:
-        """The smallest ctx bucket that fits, else max_ctx_l."""
-        for b in sorted(self.cfg.eval.ctx_buckets):
-            if ctx_l <= b:
-                return int(b)
-        return self.max_ctx
-
-    def _padded_video(self, clip_id):
-        appear, motion = self.ds.video_features(clip_id)
-        ctx_l = len(appear)
-        if ctx_l > self.max_ctx:
-            raise ValueError(f"{clip_id}: {ctx_l} clips > data.max_ctx_l {self.max_ctx}")
-        l_pad = self._bucket_len(ctx_l)
-
-        def pad(x):
-            out = np.zeros((l_pad, x.shape[1]), np.float32)
-            out[:ctx_l] = x
-            return out
-
-        return pad(appear), (pad(motion) if motion is not appear else None), ctx_l
-
-    def _encode_corpus(self, x_np):
-        """Host encode of one padded (L, D) array into its device-resident
-        form per eval.corpus_dtype -> (tensor, scale): scale is None for
-        float32/bfloat16 and the per-frame (L, 1) symmetric max-abs scale
-        for int8 (zero rows get scale 1, so padding decodes to zeros)."""
-        dt = self.cfg.eval.corpus_dtype
-        if dt == "int8":
-            scale = np.abs(x_np).max(axis=1, keepdims=True) / 127.0
-            scale = np.where(scale == 0, 1.0, scale).astype(np.float32)
-            q = np.clip(np.rint(x_np / scale), -127, 127).astype(np.int8)
-            return (torch.from_numpy(q).to(self.device),
-                    torch.from_numpy(scale).to(self.device))
-        x = torch.from_numpy(x_np).to(self.device)
-        if dt == "bfloat16":
-            return x.to(torch.bfloat16), None
-        if dt != "float32":
-            raise ValueError(f"unknown eval.corpus_dtype {dt!r}")
-        return x, None
-
-    def _device_video(self, clip_id):
-        """Device-resident padded features, uploaded once and shared by
-        every stage: (appear, a_scale, motion, m_scale, ctx_l); motion is
-        the appear tensor itself when the dataset has one visual stream."""
-        if clip_id not in self._dev_cache:
-            appear_np, motion_np, ctx_l = self._padded_video(clip_id)
-            appear, a_scale = self._encode_corpus(appear_np)
-            if motion_np is None:
-                motion, m_scale = appear, a_scale
-            else:
-                motion, m_scale = self._encode_corpus(motion_np)
-            self._dev_cache[clip_id] = (appear, a_scale, motion, m_scale, ctx_l)
-        return self._dev_cache[clip_id]
-
-    def clear_cache(self):
-        self.ds._vid_cache.clear()
-        self._dev_cache.clear()
-        self._stack_cache.clear()
 
     def _chunk_queries(self, exs):
         """Pad a query chunk to query_chunk rows of fixed-shape arrays."""
@@ -387,12 +326,12 @@ class InferencePipeline:
 
         work = []
         for clip_id, exs in by_video.items():
-            n_win = num_windows(self._device_video(clip_id)[4], self.stride)
+            n_win = num_windows(self.resident.get(clip_id).ctx_l, self.stride)
             for i in range(0, len(exs), qc):
                 work.append((exs[i : i + qc], n_win, clip_id))
 
         def bucket_of(w):
-            return self._device_video(w[2])[0].shape[0]
+            return self.resident.get(w[2]).appear.shape[0]
 
         groups = []
         if self.cfg.eval.ctx_buckets:
@@ -421,16 +360,7 @@ class InferencePipeline:
         key = tuple(c for _, _, c in stacked)
         ent = self._stack_cache.pop(key, None) if self.stack_cache else None
         if ent is None:
-            vids = [self._device_video(c) for _, _, c in stacked]
-            appear = torch.stack([v[0] for v in vids])
-            a_scale = None if vids[0][1] is None else torch.stack([v[1] for v in vids])
-            if all(v[2] is v[0] for v in vids):
-                motion, m_scale = appear, a_scale
-            else:
-                motion = torch.stack([v[2] for v in vids])
-                m_scale = None if vids[0][3] is None else torch.stack([v[3] for v in vids])
-            ctx = self._to_device(np.asarray([v[4] for v in vids], np.int32))
-            hit = (appear, a_scale, motion, m_scale, ctx)
+            hit = self.resident.stack(key)
             nbytes = sum(t.numel() * t.element_size()
                          for t in {id(t): t for t in hit if t is not None}.values())
             ent = (hit, nbytes)
@@ -451,8 +381,8 @@ class InferencePipeline:
         qc = self.cfg.eval.query_chunk
         pending = []
         for clip_id, exs in self._queries_by_video().items():
-            appear, a_scale, _, _, ctx_l = self._device_video(clip_id)
-            adapted = self._adapt(self._decode(appear, a_scale))[None]
+            appear, a_scale, _, _, ctx_l = self.resident.get(clip_id)
+            adapted = self._adapt(self.resident.decode(appear, a_scale))[None]
             ctx = self._to_device(np.asarray([ctx_l], np.int32))
             n_win = num_windows(ctx_l, self.stride)
             for i in range(0, len(exs), qc):
@@ -478,7 +408,7 @@ class InferencePipeline:
 
         def staged():
             for clip_id, exs in self._queries_by_video().items():
-                appear, a_scale, motion, m_scale, ctx_l = self._device_video(clip_id)
+                appear, a_scale, motion, m_scale, ctx_l = self.resident.get(clip_id)
                 ctx = self._to_device(np.asarray([ctx_l], np.int32))
                 for i in range(0, len(exs), qc):
                     chunk = exs[i : i + qc]
@@ -496,8 +426,8 @@ class InferencePipeline:
         pending = []
         for chunk, win_valid, inputs in prefetch_iterator(staged(), depth=2):
             appear, a_scale, motion, m_scale, ctx, win_idx, toks, tmask, clss = inputs
-            ap = self._decode(appear, a_scale)[None]
-            mo = ap if motion is appear else self._decode(motion, m_scale)[None]
+            ap = self.resident.decode(appear, a_scale)[None]
+            mo = ap if motion is appear else self.resident.decode(motion, m_scale)[None]
             got = self._fine(ap, mo, ctx, win_idx, toks, tmask, clss)
             pending.append((chunk, win_valid, tuple(x[0] for x in got)))
         rows = []

@@ -60,6 +60,16 @@ def window_scores_from_frame_scores(frame_scores: torch.Tensor, ctx_l,
     return window_scores_from_segment_max(seg_max, ctx, stride, max_windows)
 
 
+def coarse_window_scores(feats: torch.Tensor, cls: torch.Tensor, ctx_l: torch.Tensor,
+                         stride: int, max_windows: int):
+    """The plain coarse scoring (cone/inference.py:276-299): query rows cls
+    (B, Q, D), or (Q, D) shared by every video, against frames feats
+    (B, L_pad, D) of videos with ctx_l (B,) clips, then the per-window max.
+    Returns (scores, valid), both (B, Q, max_windows)."""
+    return window_scores_from_frame_scores(cls @ feats.transpose(1, 2), ctx_l[:, None],
+                                           stride, max_windows)
+
+
 def slice_windows(features: torch.Tensor, window_idx: torch.Tensor,
                   stride: int, max_v_l: int, ctx_l):
     """Gather windows out of padded video features as one fixed-shape batch.

@@ -3,9 +3,8 @@ video.
 
 The reference (and the per-video pipeline) always grounds a query in the
 video named by its annotation (`clip_id`). With the corpus resident on the
-device (eval/pipeline.py `_device_video`, optionally quantized via
-eval.corpus_dtype), cross-video search is the same machinery pointed at
-all videos at once:
+device (eval/resident.py, optionally quantized via eval.corpus_dtype),
+cross-video search is the same machinery pointed at all videos at once:
 
   1. coarse: the query's CLS feature scores every window of every resident
      video (one batched product + segment max per ctx bucket over the
@@ -52,11 +51,7 @@ from cone_tpu_torch.data.store import (
 )
 from cone_tpu_torch.eval.pipeline import _fetch, make_pipeline
 from cone_tpu_torch.ops.nms import temporal_nms_host
-from cone_tpu_torch.ops.windows import (
-    num_windows,
-    slice_windows_flat,
-    window_scores_from_frame_scores,
-)
+from cone_tpu_torch.ops.windows import coarse_window_scores, num_windows, slice_windows_flat
 from cone_tpu_torch.parallel import distributed
 from cone_tpu_torch.utils.io import l2_normalize, min_max_normalize
 from cone_tpu_torch.utils.trace import span
@@ -91,7 +86,7 @@ class CorpusRetriever:
                                        | set(ds.appear.keys()))
             except (AttributeError, TypeError):
                 pass
-        self._stacked = None  # {bucket_len: (ids, A, S, M, MS, ctx, ctxs)}
+        self._stacked = None  # {bucket_len: (ids, ctx_ls, DeviceVideo stack)}
         self._row_of: Dict[str, tuple] = {}
         # the fine stage's work since construction (MomentService /stats
         # "fine"): windows refined and dispatches; every row of a dispatch is
@@ -103,23 +98,10 @@ class CorpusRetriever:
         return GroundingDataset([], InMemoryArrayStore({}), text,
                                 self.cfg.data)
 
-    def _stacked_scores(self, A, S, ctx, clss):
-        """(V, Lb, D) encoded corpus + scales + (V,) ctx + (Q, D) query CLS
-        batch -> (V, Q, n_w) window scores: the pipeline's own decode +
-        adapter (gated on the family's knob) + renormalize, one batched product over the whole stacked
-        bucket, and the per-window max. Any number of queries rides the
-        same pass over the corpus. The (V, Q, Lb) frame scores live only
-        inside this call."""
-        feats = self.pipe._adapt(self.pipe._decode(A, S))
-        frame = clss @ feats.transpose(1, 2)  # (V, Q, Lb)
-        return window_scores_from_frame_scores(
-            frame, ctx[:, None], self.pipe.stride,
-            num_windows(A.shape[1], self.pipe.stride))[0]
-
     # -------------------------------------------------------------- corpus
 
     def _invalidate(self, clip_id: str) -> None:
-        self.pipe._dev_cache.pop(clip_id, None)
+        self.pipe.resident.drop(clip_id)
         self._stacked = None  # rebuild the stacked corpus lazily
 
     def add_video(self, clip_id: str, feats: np.ndarray,
@@ -184,9 +166,13 @@ class CorpusRetriever:
         ValueError for ids not in the library. A dataset-backed video is
         only evicted from the LIBRARY: the backing store is untouched."""
         self.clip_ids.remove(clip_id)
-        self.pipe.ds._vid_cache.pop(clip_id, None)
-        self.pipe.ds._pinned.discard(clip_id)
+        self.pipe.ds.evict_video(clip_id)
         self._invalidate(clip_id)
+
+    def total_clips(self) -> int:
+        """Clips of the library's videos whose features the dataset holds
+        (MomentService /stats "total_clips")."""
+        return self.pipe.resident.resident_clips(self.clip_ids)
 
     def save_corpus(self, dir_path: str) -> int:
         """Persist the resident library to packed .cfs stores
@@ -239,36 +225,25 @@ class CorpusRetriever:
         return sorted(distributed.all_gather_rows(best), key=lambda kv: -kv[1])
 
     def _ensure_stacked(self):
-        """Group the corpus by padded bucket length into stacked device
-        tensors ((V, Lb, D) features + scales + (V,) ctx). The per-video
-        cache entries are dropped afterwards: the stack IS the resident
-        corpus, and the fine stage slices its shortlisted movies back out
-        of it. (The pipeline's own stack cache fills only in run_fused,
-        which the retriever never calls, so the corpus is held once.)"""
+        """Group the corpus by padded bucket length into one stack a bucket
+        (`ResidentVideos.stack`). The per-video device copies are dropped
+        afterwards: the stack IS the resident corpus, and the fine stage
+        slices its shortlisted movies back out of it. (The pipeline's own
+        stack cache fills only in run_fused, which the retriever never
+        calls, so the corpus is held once.)"""
         if self._stacked is not None:
             return self._stacked
         # a rank of a group may hold no shard (more ranks than movies), but
         # it still takes part in every merge
         assert self.clip_ids or distributed.world_size() > 1, \
             "corpus is empty: add_video() first"
+        resident = self.pipe.resident
         by_bucket: Dict[int, List[str]] = {}
         for cid in self.clip_ids:
-            l_pad = self.pipe._device_video(cid)[0].shape[0]
-            by_bucket.setdefault(l_pad, []).append(cid)
-        stacked = {}
-        for l_pad, ids in sorted(by_bucket.items()):
-            vids = [self.pipe._device_video(c) for c in ids]
-            A = torch.stack([v[0] for v in vids])
-            S = None if vids[0][1] is None else torch.stack([v[1] for v in vids])
-            if any(v[2] is not v[0] for v in vids):  # dual-stream corpus
-                M = torch.stack([v[2] for v in vids])
-                MS = None if vids[0][3] is None else torch.stack([v[3] for v in vids])
-            else:
-                M, MS = None, None
-            ctxs = [v[4] for v in vids]
-            ctx = torch.tensor(ctxs, dtype=torch.int32, device=self.pipe.device)
-            stacked[l_pad] = (ids, A, S, M, MS, ctx, ctxs)
-        self.pipe._dev_cache.clear()
+            by_bucket.setdefault(resident.get(cid).appear.shape[0], []).append(cid)
+        stacked = {l_pad: (ids, [resident.get(c).ctx_l for c in ids], resident.stack(ids))
+                   for l_pad, ids in sorted(by_bucket.items())}
+        resident.clear()
         self._stacked = stacked
         # movie -> (its bucket, its row in the bucket's stack)
         self._row_of = {cid: (l_pad, i) for l_pad, (ids, *_) in stacked.items()
@@ -279,14 +254,21 @@ class CorpusRetriever:
     @span("corpus.scan")
     def _coarse_all(self, cls_feats: np.ndarray):
         """(video_id, ctx_l, (Q, n_w) window scores) for every resident
-        video: ONE pass per ctx bucket over the stacked corpus for the
-        whole query batch, one transfer to the host."""
+        video: per ctx bucket, the pipeline's own decode + adapter (gated
+        on the family's knob) + renormalize and ONE batched product over
+        the stacked bucket for the whole query batch, then the per-window
+        max; one transfer to the host. The (V, Q, Lb) frame scores never
+        leave the device."""
+        pipe = self.pipe
         clss = np.asarray(cls_feats, np.float32)
         norms = np.maximum(np.linalg.norm(clss, axis=-1, keepdims=True), 1e-12)
-        clss_t = torch.from_numpy(np.ascontiguousarray(clss / norms)).to(self.pipe.device)
+        clss_t = torch.from_numpy(np.ascontiguousarray(clss / norms)).to(pipe.device)
         pend = []
-        for ids, A, S, _, _, ctx, ctxs in self._ensure_stacked().values():
-            pend.append((ids, ctxs, (self._stacked_scores(A, S, ctx, clss_t),)))
+        for ids, ctxs, (A, S, _, _, ctx) in self._ensure_stacked().values():
+            # the adapted bucket is a temporary: freed before the next bucket's
+            scores, _ = coarse_window_scores(pipe._adapt(pipe.resident.decode(A, S)), clss_t,
+                                             ctx, pipe.stride, num_windows(A.shape[1], pipe.stride))
+            pend.append((ids, ctxs, (scores,)))
         fetched = _fetch([p[2] for p in pend])
         out = []
         for (ids, ctxs, _), (scores,) in zip(pend, fetched):
@@ -461,19 +443,20 @@ class CorpusRetriever:
         concatenated, each window given its query's rows of the device
         (Q, ...) toks/tmask/cls. Returns the family's fine outputs, one row
         a triple, unfetched."""
-        pipe = self.pipe
+        pipe, resident = self.pipe, self.pipe.resident
         video, win_idx, qidx = pipe._to_device(np.asarray(
             [(self._row_of[cid][1], w, qi) for cid, qi, w in wins], np.int64).T)
         parts, lo = [], 0
         for l_pad, grp in itertools.groupby(self._row_of[cid][0] for cid, _, _ in wins):
             hi = lo + len(list(grp))
-            _, A, S, M, MS, ctx, _ = stacked[l_pad]
+            A, S, M, MS, ctx = stacked[l_pad][2]
             v = video[lo:hi]
-            (a, a_s, m, m_s), wmask, wstart, wlen = slice_windows_flat(
-                (A, S, M, MS), v, win_idx[lo:hi], ctx[v], pipe.stride,
+            same = M is A  # single-stream: one gather
+            (a, a_s, *mo), wmask, wstart, wlen = slice_windows_flat(
+                (A, S) if same else (A, S, M, MS), v, win_idx[lo:hi], ctx[v], pipe.stride,
                 self.cfg.data.max_v_l)
-            ap = pipe._decode(a, a_s)
-            parts.append((ap, ap if m is None else pipe._decode(m, m_s), wmask, wstart, wlen))
+            ap = resident.decode(a, a_s)
+            parts.append((ap, ap if same else resident.decode(*mo), wmask, wstart, wlen))
             lo = hi
 
         def cat(j):

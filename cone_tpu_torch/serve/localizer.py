@@ -72,10 +72,9 @@ class OnlineLocalizer:
         # max_q_l); without this a long query dies deep in the pipeline
         # with an opaque broadcast error
         token_feats = np.asarray(token_feats)[: self.cfg.data.max_q_l]
-        self.pipe.ds = self._make_ds(video_feats, token_feats, cls_feat, query)
-        # the device cache keys by clip_id ("v0" every request): drop it so
-        # a new request never reuses the previous video's features
-        self.pipe.clear_cache()
+        # the resident videos key by clip_id ("v0" every request): reset them
+        # so a new request never reuses the previous video's features
+        self.pipe.reset(self._make_ds(video_feats, token_feats, cls_feat, query))
         subs, ranklists = self.pipe.run(host_postproc=True)
         times = subs["fusion"][0]["predicted_times"]
         return (times[:top_k] if top_k is not None else times), list(ranklists["q0"])

@@ -255,14 +255,9 @@ class MomentService:
                for k in self._counts}
         queue = {k: round(self._queue_sum[k] / max(self._counts[k], 1), 4)
                  for k in self._counts}
-        clips = sum(
-            len(self.retriever.pipe.ds._vid_cache[c][0])
-            for c in self.retriever.clip_ids
-            if c in self.retriever.pipe.ds._vid_cache
-        )
         r = self.retriever
         out = {"requests": dict(self._counts), "mean_latency_s": lat, "mean_queue_s": queue,
-               "videos": len(r.clip_ids), "total_clips": clips,
+               "videos": len(r.clip_ids), "total_clips": r.total_clips(),
                "fine": {"windows": r.fine_windows, "dispatches": r.fine_dispatches}}
         if self.batcher is not None:
             b = self.batcher

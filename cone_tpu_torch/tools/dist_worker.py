@@ -151,24 +151,27 @@ def window_scores(model, cfg, ds, device) -> dict:
     """{query_id: window scores in window order} of this rank's videos, from
     the plain coarse stage (kernel off), for telling near-ties apart."""
     from cone_tpu_torch.eval.pipeline import InferencePipeline
-    from cone_tpu_torch.ops.windows import num_windows, window_scores_from_frame_scores
 
     cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, use_pallas_coarse=False))
     mine = set(distributed.shard_by_process(sorted(ds.video_ids)))
     pipe = InferencePipeline(model, ds, cfg, device=device)
-    out = {}
-    with torch.inference_mode():
-        for e in ds.examples:
-            if e.clip_id not in mine:
-                continue
-            appear, a_scale, _, _, ctx_l = pipe._device_video(e.clip_id)
-            adapted = pipe._adapt(pipe._decode(appear, a_scale))[None]
-            cls = torch.from_numpy(ds.query_features(e.query_id)[1]).to(device)[None, None]
-            s, _ = window_scores_from_frame_scores(
-                cls @ adapted.transpose(1, 2), torch.tensor([[ctx_l]], device=device),
-                pipe.stride, num_windows(ctx_l, pipe.stride))
-            out[e.query_id] = s[0, 0].cpu().tolist()
+    out = {e.query_id: video_window_scores(pipe, e.clip_id, ds.query_features(e.query_id)[1])
+           .tolist() for e in ds.examples if e.clip_id in mine}
     return {q: s for part in distributed.all_gather_obj(out) for q, s in part.items()}
+
+
+@torch.inference_mode()
+def video_window_scores(pipe, clip_id: str, cls: np.ndarray) -> np.ndarray:
+    """One video's plain coarse window scores (the pipeline's adapter, no
+    kernel) for one (D,) query CLS row, in window order."""
+    from cone_tpu_torch.ops.windows import coarse_window_scores, num_windows
+
+    appear, a_scale, _, _, ctx_l = pipe.resident.get(clip_id)
+    adapted = pipe._adapt(pipe.resident.decode(appear, a_scale))[None]
+    s, _ = coarse_window_scores(adapted, torch.from_numpy(cls).to(pipe.device)[None, None],
+                                torch.tensor([ctx_l], device=pipe.device), pipe.stride,
+                                num_windows(ctx_l, pipe.stride))
+    return s[0, 0].cpu().numpy()
 
 
 def dispatches(cfg, ds) -> int:

@@ -18,6 +18,7 @@ import torch
 from cone_tpu_torch.config import ConeConfig, DataConfig, EvalConfig, ModelConfig
 from cone_tpu_torch.models.cone import ConeModel
 from cone_tpu_torch.ops.windows import num_windows, slice_windows, slice_windows_flat
+from cone_tpu_torch.serve import corpus
 from cone_tpu_torch.serve.corpus import CorpusRetriever
 from cone_tpu_torch.serve.server import MomentService
 
@@ -170,15 +171,25 @@ class _Spy:
 @pytest.mark.parametrize("kw", [dict(), dict(corpus_dtype="int8"), dict(corpus_dtype="bfloat16"),
                                 dict(ctx_buckets=(64, 96)), dict(dual=True)],
                          ids=["float32", "int8", "bfloat16", "ctx_buckets", "dual_stream"])
-def test_packed_forward_equals_the_per_video_fine(model, library, kw):
+def test_packed_forward_equals_the_per_video_fine(model, library, kw, monkeypatch):
     """Each packed row is the per-video `_fine` of its own (query, window):
     the gather, the decode after it and the query-index mapping are right
-    for every corpus encoding, over ctx buckets and for two streams."""
+    for every corpus encoding, over ctx buckets and for two streams; a
+    single-stream library gathers its one stream once."""
     _, _, queries = library
     r = _retriever(model, library, **kw)
     spy = _Spy(r)
+    gathered = []
+
+    def flat(stacks, *a):
+        gathered.append(sum(x is not None for x in stacks))
+        return slice_windows_flat(stacks, *a)
+
+    monkeypatch.setattr(corpus, "slice_windows_flat", flat)
     toks = [q[0] for q in queries[:3]]
     r.search_batch(toks, np.stack([q[1] for q in queries[:3]]), search_windows=7)
+    per_stream = 2 if kw.get("corpus_dtype") == "int8" else 1  # features (+ scales)
+    assert gathered and set(gathered) == {per_stream * (2 if "dual" in kw else 1)}
     assert [n for _, n in spy.dispatches] == [7, 7, 7]
     wins = [t for part, _ in spy.dispatches for t in part]
     assert [qi for _, qi, _ in wins] == [0] * 7 + [1] * 7 + [2] * 7
@@ -197,9 +208,10 @@ def test_packed_forward_equals_the_per_video_fine(model, library, kw):
                                 *(torch.from_numpy(x) for x in (toks_np, tmask_np, clss)))
         for row, (cid, qi, w) in enumerate(wins):
             l_pad, v = r._row_of[cid]
-            _, A, S, M, MS, _, ctxs = stacked[l_pad]
-            ap = pipe._decode(A[v], None if S is None else S[v])[None]
-            mo = ap if M is None else pipe._decode(M[v], None if MS is None else MS[v])[None]
+            _, ctxs, (A, S, M, MS, _) = stacked[l_pad]
+            decode = pipe.resident.decode
+            ap = decode(A[v], None if S is None else S[v])[None]
+            mo = ap if M is A else decode(M[v], None if MS is None else MS[v])[None]
             one = pipe._fine(ap, mo, torch.tensor([ctxs[v]], dtype=torch.int32),
                              torch.tensor([[[w]]]),
                              *(torch.from_numpy(x[qi : qi + 1][None])

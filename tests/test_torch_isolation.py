@@ -31,6 +31,16 @@ ALLOWED = {
     ("cone_tpu_torch/cli.py", "import h5py   # optional: only this branch needs it"):
         "cmd_convert_store's --format h5 branch",
 }
+# a video's host copy belongs to the dataset, its device copy to the resident
+# library: these private names appear in their owner's file and nowhere else
+OWNER_OF_PRIVATE = {
+    "_vid_cache": "cone_tpu_torch/data/dataset.py",
+    "_pinned": "cone_tpu_torch/data/dataset.py",
+    **{name: "cone_tpu_torch/eval/resident.py" for name in (
+        "_dev_cache", "_device_video", "_encode_corpus", "_padded_video", "_bucket_len")},
+}
+SOURCES = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py"))
 NEW_MODULES = [
     "cone_tpu_torch.__main__", "cone_tpu_torch.cli", "cone_tpu_torch.eval.ensemble",
     "cone_tpu_torch.eval.metrics", "cone_tpu_torch.eval.submission",
@@ -101,14 +111,27 @@ def test_the_walk_finds_the_serving_slice():
     assert set(NEW_MODULES) <= set(_modules())
 
 
-@pytest.mark.parametrize("path", [os.path.join(REPO, "chip_smoke.py")] + sorted(
-    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")))
+@pytest.mark.parametrize("path", SOURCES)
 def test_sources_import_no_jax_and_no_cone_tpu(path):
     rel = os.path.relpath(path, REPO)
     with open(path) as f:
         hits = [line.strip() for line in f if FORBIDDEN.match(line)]
     hits = [h for h in hits if (rel, h) not in ALLOWED]
     assert not hits, (rel, hits)
+
+
+@pytest.mark.parametrize("name", sorted(OWNER_OF_PRIVATE))
+def test_video_caches_are_named_only_by_their_owner(name):
+    """The pipeline, the retriever, the server and the tools reach a
+    video's copies through the dataset's and eval/resident.py's public
+    methods, never through these names."""
+    hits = []
+    for path in SOURCES:
+        rel = os.path.relpath(path, REPO)
+        if rel != OWNER_OF_PRIVATE[name]:
+            with open(path) as f:
+                hits += [f"{rel}:{i}" for i, line in enumerate(f, 1) if name in line]
+    assert not hits, hits
 
 
 def test_allowed_optional_imports_are_still_where_they_are_said_to_be():

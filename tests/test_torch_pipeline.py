@@ -286,7 +286,7 @@ def test_corpus_encoding_matches_cone_tpu(synthetic, corpus_dtype):
     pipe = InferencePipeline(model, ds, _with_eval(cfg, corpus_dtype=corpus_dtype), device="cpu")
     jpipe = JInferencePipeline(jmodel, params, jds, _with_eval(jcfg, corpus_dtype=corpus_dtype))
     clip_id = ds.examples[0].clip_id
-    x, scale = pipe._encode_corpus(pipe._padded_video(clip_id)[0])
+    x, scale = pipe.resident.get(clip_id)[:2]
     jx, jscale = jpipe._encode_corpus(jpipe._padded_video(clip_id)[0])
     np.testing.assert_array_equal(x.float().numpy(), np.asarray(jx).astype(np.float32))
     if corpus_dtype == "int8":
@@ -313,7 +313,7 @@ def test_stack_cache_is_byte_bounded(synthetic):
     assert pipe.run(host_postproc=False, fused=True) == ref
     assert len(pipe._stack_cache) == 1
     pipe.stack_cache = False
-    pipe.clear_cache()
+    pipe.reset()
     assert pipe.run(host_postproc=False, fused=True) == ref
     assert not pipe._stack_cache
 

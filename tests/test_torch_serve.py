@@ -216,7 +216,7 @@ def test_remove_video(weights, corpus):
     got = t.search(q["tok"], q["cls"])
     assert got and all(m["video_id"] != q["video"] for m in got)
     _assert_moments_close(got, j.search(q["tok"], q["cls"]))
-    assert q["video"] not in t.clip_ids and q["video"] not in t.pipe.ds._vid_cache
+    assert q["video"] not in t.clip_ids and t.pipe.ds.cached_video(q["video"]) is None
     with pytest.raises(ValueError):
         t.remove_video("never-added")
 
@@ -277,7 +277,7 @@ def test_encoded_and_bucketed_corpus_matches_cone_tpu(weights, corpus, kw):
         _assert_moments_close(got, want)
     if "ctx_buckets" in kw:
         assert len(t._stacked) >= 2 and set(t._stacked) <= {64, 96, 128}
-    assert not t.pipe._dev_cache and not t.pipe._stack_cache  # the stack holds the corpus once
+    assert not len(t.pipe.resident) and not t.pipe._stack_cache  # the stack holds the corpus once
 
 
 def test_dataset_backed_retriever(weights):
@@ -339,6 +339,8 @@ def test_service_handles_every_endpoint(weights, corpus, tmp_path):
                               dict(clip_id="vid0", features=v0[20:].tolist()))
     assert (status, body) == (200, {"ok": True, "clip_id": "vid0", "clips": len(v0)})
     direct.add_video("vid0", v0)
+    all_clips = sum(len(v) for v in videos.values())
+    assert svc.handle("GET", "/stats", None)[1]["total_clips"] == all_clips
 
     q = queries[0]
     want = _jsonable(direct.search(q["tok"], q["cls"], query=q["text"]))
@@ -368,6 +370,7 @@ def test_service_handles_every_endpoint(weights, corpus, tmp_path):
     assert (status, body["videos"]) == (200, 5)
     status, body = svc.handle("POST", "/remove_video", dict(clip_id="vid0"))
     assert (status, body) == (200, {"ok": True, "clip_id": "vid0", "videos": 4})
+    assert svc.handle("GET", "/stats", None)[1]["total_clips"] == all_clips - len(v0)
     status, body = svc.handle("POST", "/remove_video", dict(clip_id="vid0"))
     assert status == 400
     status, body = svc.handle("POST", "/load_corpus", dict(dir=str(tmp_path / "lib")))
@@ -377,7 +380,7 @@ def test_service_handles_every_endpoint(weights, corpus, tmp_path):
 
     status, body = svc.handle("GET", "/stats", None)
     assert status == 200 and body["videos"] == 5
-    assert body["total_clips"] == sum(len(v) for v in videos.values())
+    assert body["total_clips"] == all_clips
     assert body["requests"]["search"] == 5 and body["requests"]["search_batch"] == 1
     assert body["requests"]["localize"] == 1 and "dynamic_batching" not in body
 
