@@ -6,15 +6,19 @@ At the Ego4D preset's full width (random weights from the seed, dropout
 on, the adapter on), on batches of a planted-signal synthetic set copied
 to the device beforehand, so the loader is out of the measurement:
   1. the step as `train` runs it (make_train_step, its metrics read back to
-     the host): host-clock ms per step, median over --steps, with the
-     batches staged beforehand and with the loader sampling and copying
-     them on a background thread meanwhile, as `train` does;
+     the host; on one card it replays CUDA graphs): host-clock ms per step,
+     median over --steps, with the batches staged beforehand and with the
+     loader sampling and copying them on a background thread meanwhile, as
+     `train` does; and the eager step (`graphs=False`) of a second model
+     from the same seed on the staged batches;
   2. the same work cut into phases, each ended by a synchronize: the two
      forwards, the criterion (matchers included), the backward, the clip,
      the AdamW update with the lr schedule;
-  3. torch.profiler over --steps steps: device time per step and its share
-     of the wall, kernel launches per step, and the ops with the most host
-     time and the kernels with the most device time;
+  3. torch.profiler over --steps steps, the program's spans on: device
+     time per step and its share of the wall, kernel launches per step,
+     the share of `cone.step` spans that hold a `cone.step.replay`, and
+     the ops with the most host time and the kernels with the most device
+     time;
   4. utils/perf.train_perf_report on the pre-staged step time: FLOPs a
      sample, samples/s and the MFU against the card's peak for the preset's
      compute dtype.
@@ -42,6 +46,7 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
     from cone_tpu_torch.train.loop import build_family, device_seconds
     from cone_tpu_torch.train.optim import make_optimizer
     from cone_tpu_torch.train.step import batch_to_device, make_train_step, to_floats
+    from cone_tpu_torch.utils import trace
     from cone_tpu_torch.utils.device import resolve_device
     from cone_tpu_torch.utils.perf import device_fence, train_perf_report
 
@@ -67,11 +72,22 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
         to_floats(step(batch(i), True))
     device_fence(dev)
 
-    walls = []
-    for i in range(steps):
-        t0 = time.perf_counter()
-        to_floats(step(batch(i), True))
-        walls.append(time.perf_counter() - t0)
+    def timed(fn):
+        walls = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            to_floats(fn(batch(i), True))
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    walls = timed(step)
+    eager_model = build_family(cfg, seed=seed, device=dev)
+    eager_opt, eager_sched = make_optimizer(eager_model, cfg.train, loader.steps_per_epoch())
+    eager = make_train_step(eager_model, eager_opt, eager_sched, cfg, graphs=False)
+    for i in range(3):
+        to_floats(eager(batch(i), True))
+    eager_walls = timed(eager)
+    del eager, eager_opt, eager_model
 
     # the same steps with the loader as `train` runs it: batches sampled and
     # copied to the device on a background thread while the step runs
@@ -126,12 +142,15 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
+        trace.enable(True)
         t0 = time.perf_counter()
         for i in range(steps):
             to_floats(step(batch(i), True))
         device_fence(dev)
         prof_wall = time.perf_counter() - t0
+        trace.enable(False)
     avgs = prof.key_averages()
+    span_count = {e.key: e.count for e in avgs if e.key.startswith(trace.PREFIX + "step")}
     dev_evts = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)]
 
@@ -150,12 +169,16 @@ def run(bsz: int = 32, steps: int = 20, device="cuda", seed: int = 0) -> dict:
         "bsz": bsz, "steps": steps,
         "step_ms_median": float(np.median(walls)) * 1e3,
         "step_ms_min": float(np.min(walls)) * 1e3,
+        "step_ms_median_eager": float(np.median(eager_walls)) * 1e3,
+        "step_counts": dict(step.counts),
         "step_ms_median_loader_thread": float(np.median(loaded)) * 1e3,
         "phase_ms_median": {k: float(np.median(v)) * 1e3 for k, v in phases.items()},
         "profiled_wall_ms_per_step": prof_wall / steps * 1e3,
         "device_ms_per_step": device_s / steps * 1e3,
         "busy_share": device_s / prof_wall,
         "kernel_launches_per_step": launches / steps,
+        "replay_share": span_count.get("cone.step.replay", 0)
+        / max(span_count.get("cone.step", 0), 1),
         "top_host_ops": [(e.key, e.count // steps, round(e.self_cpu_time_total / steps / 1e3, 3))
                          for e in top_host],
         "top_device_kernels": [(e.key[:90], e.count // steps, round(dev_us(e) / steps / 1e3, 3))
@@ -176,13 +199,14 @@ def main(argv=None):
     res = run(args.bsz, args.steps, args.device)
     print(f"train step at Ego4D width, bsz {res['bsz']}, on {res['device']}: median "
           f"{res['step_ms_median']:.2f} ms (min {res['step_ms_min']:.2f}) over {res['steps']} "
-          f"steps, {res['step_ms_median_loader_thread']:.2f} ms with the loader on its thread; "
+          f"steps ({res['step_counts']}), eager {res['step_ms_median_eager']:.2f} ms, "
+          f"{res['step_ms_median_loader_thread']:.2f} ms with the loader on its thread; "
           f"phases (each synchronized) "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in res["phase_ms_median"].items()))
     print(f"profiled: {res['profiled_wall_ms_per_step']:.2f} ms wall, "
           f"{res['device_ms_per_step']:.2f} ms device per step (busy share "
           f"{res['busy_share']:.3f}), {res['kernel_launches_per_step']:.0f} kernel launches "
-          f"per step")
+          f"per step, {res['replay_share']:.3f} of the steps replayed")
     if "perf" in res:
         rep = res["perf"]
         print(f"train MFU on the pre-staged step: {rep['train_mfu']:.4f} "

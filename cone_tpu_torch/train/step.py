@@ -21,9 +21,17 @@ At model.compute_dtype bfloat16 the forwards compute in bfloat16 over the
 float32 parameters (models/transformer.py), so every gradient is float32;
 the criterion, the gradient norm, the clip and AdamW stay float32, with no
 loss scaling and no autocast, as in cone_tpu/train/step.py.
+
+On one CUDA card, with no group of several ranks and no tensor parallel
+(`graphs_apply`), the step's device work before the update is captured
+once per adapter gate and batch shape as a CUDA graph and replayed, so a
+step costs the host one graph launch instead of some 1 700 kernel
+launches through the modules and autograd (`make_train_step`).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -97,8 +105,21 @@ def make_loss_fn(model, cfg: ConeConfig, reduce: GroupReduce = LOCAL):
     return loss_fn
 
 
+def graphs_apply(device, reduce: GroupReduce = LOCAL, tp=None) -> bool:
+    """Whether the train step replays its device work as CUDA graphs: on a
+    CUDA device, with one rank and no tensor parallel. A step of several
+    ranks (their collectives) or of tp shards, and every CPU step, runs
+    eagerly."""
+    return torch.device(device).type == "cuda" and reduce.world == 1 and tp is None
+
+
+# one captured step: its input buffers, the graph, the metrics' names and
+# stacked output, and the gradients its backward writes
+_Graph = collections.namedtuple("_Graph", "inputs graph names out grads")
+
+
 def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
-                    reduce: GroupReduce = LOCAL, tp=None):
+                    reduce: GroupReduce = LOCAL, tp=None, graphs=None):
     """train_step(batch, adapter_on) -> metrics: every criterion term,
     loss_overall and grad_norm (the global gradient norm before the clip),
     as 0-d tensors on the device; the model is in train mode for the step.
@@ -114,19 +135,41 @@ def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
     one generator on the model's device, seeded from (train.seed, global
     step); the global step is the lr schedule's step count, which a
     resumed run restores. The masks cover the global batch (this rank's
-    rows times the ranks) and the rank keeps its row block."""
+    rows times the ranks) and the rank keeps its row block.
+
+    CUDA graphs (`graphs`, default `graphs_apply(device, reduce, tp)`;
+    False runs the eager step on a card too, the graphs' reference in the
+    card tests and tools/bench_train.py): the forwards, the backward, the
+    clip and the metrics' stack are captured once per (adapter_on, the
+    batch's shapes and dtypes), after one eager warm-up on a side stream
+    that updates nothing, and each step copies its batch into the graph's
+    input buffers, seeds the generator, which the graph reads at replay,
+    and replays it; AdamW and the lr schedule step eagerly on the
+    gradients the graph wrote, so the masks, the update and the optimizer
+    state are the eager step's. The graphs read the parameters and write
+    their gradients by address: AdamW and load_state_dict write the
+    weights in place, and a step whose parameters moved to new storage
+    (`param.data = ...`, a module moved to another device or dtype) drops
+    every graph and captures again. The returned metrics are a copy, which
+    the next replay leaves alone. `train_step.counts` counts captures, the
+    warm-ups before them, replays and eager steps."""
     loss_fn = make_loss_fn(model, cfg, reduce)
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
     clip = cfg.train.grad_clip if cfg.train.grad_clip > 0 else float("inf")
     gen = torch.Generator(device=device)
+    if graphs is None:
+        graphs = graphs_apply(device, reduce, tp)
+    counts = {"captures": 0, "warmups": 0, "replays": 0, "eager": 0}
+    captured = {}          # (adapter_on, batch shapes and dtypes) -> _Graph
+    addresses = []         # the parameters' storage the graphs read
 
-    @span("step")
-    def train_step(batch: dict, adapter_on: bool = False) -> dict:
-        model.train()
-        batch = batch_to_device(batch, device)
+    def seed():
+        gen.manual_seed(step_seed(cfg.train.seed, scheduler.last_epoch))
+
+    def forward_backward(batch: dict, adapter_on: bool) -> dict:
+        """The step's device work before the update, drawing from `gen`."""
         with span("step.forward"):
-            gen.manual_seed(step_seed(cfg.train.seed, scheduler.last_epoch))
             with global_rows(gen, len(batch["query_tokens"]) * reduce.world,
                              rank_row_blocks(batch, reduce)):
                 total, losses = loss_fn(batch, adapter_on)
@@ -138,13 +181,71 @@ def make_train_step(model, optimizer, scheduler, cfg: ConeConfig,
             # the pre-clip norm (torch's own clip, cone/train.py:87-88)
             grad_norm = clip_grad_norm_(params, clip, tp)
             zero_missing_grads(params)
-        with span("step.update"):
-            optimizer.step()
-            scheduler.step()
         metrics = global_terms(losses, reduce)
         metrics["grad_norm"] = grad_norm
         return metrics
 
+    def update():
+        with span("step.update"):
+            optimizer.step()
+            scheduler.step()
+
+    def capture(batch: dict, adapter_on: bool) -> _Graph:
+        """torch's whole-network recipe: an eager warm-up on a side stream
+        (lazy tables such as ops/matching.permutations' fill there), the
+        gradients dropped, then the capture."""
+        inputs = {k: v.clone() for k, v in batch.items()}
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            forward_backward(inputs, adapter_on)
+        torch.cuda.current_stream(device).wait_stream(side)
+        counts["warmups"] += 1
+        optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        # thread_local: the loader's thread copies batches meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            metrics = forward_backward(inputs, adapter_on)
+            out = torch.stack(list(metrics.values()))
+        counts["captures"] += 1
+        return _Graph(inputs, graph, list(metrics), out, [p.grad for p in params])
+
+    def replay(batch: dict, adapter_on: bool) -> dict:
+        now = [p.data_ptr() for p in params]
+        if now != addresses:
+            captured.clear()
+            addresses[:] = now
+        key = (adapter_on,) + tuple((k, v.shape, v.dtype) for k, v in batch.items())
+        g = captured.get(key)
+        if g is None:
+            with span("step.capture"):
+                g = captured[key] = capture(batch, adapter_on)
+        with span("step.replay"):
+            torch._foreach_copy_(list(g.inputs.values()), [batch[k] for k in g.inputs])
+            seed()
+            g.graph.replay()
+        for p, grad in zip(params, g.grads):   # this graph's, after another's replay
+            p.grad = grad
+        counts["replays"] += 1
+        update()
+        return dict(zip(g.names, g.out.clone().unbind()))
+
+    def eager(batch: dict, adapter_on: bool) -> dict:
+        seed()
+        metrics = forward_backward(batch, adapter_on)
+        update()
+        counts["eager"] += 1
+        return metrics
+
+    run = replay if graphs else eager
+
+    @span("step")
+    def train_step(batch: dict, adapter_on: bool = False) -> dict:
+        model.train()
+        return run(batch_to_device(batch, device), adapter_on)
+
+    train_step.counts = counts
     return train_step
 
 
